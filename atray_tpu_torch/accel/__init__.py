@@ -1,1 +1,2 @@
-"""Acceleration structures: SAH BVH, 8-wide collapse, shaded leaf records."""
+"""Acceleration structures: SAH BVH, leaf packing, 8-wide collapse, shaded
+and unshaded wide BVHs, and their refits."""

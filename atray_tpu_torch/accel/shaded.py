@@ -15,6 +15,7 @@ floats, and anything that reads them must go through an int32 view.
 The tables are built in host numpy and are array-equal to the reference's
 for the same builder backend, so both packages' hit kernels read one input
 contract. ``ShadedWideBVH.to(device)`` uploads them once.
+``refit_shaded`` recomputes the tables from a moved scene on its device.
 """
 
 from __future__ import annotations
@@ -195,3 +196,76 @@ def build_shaded_accel(scene, config: KDTreeConfig = KDTreeConfig(leaf_size=16),
         leaves_per_treelet=lpt,
         build_vertices=np.asarray(vertices, np.float32),
     )
+
+
+def refit_shaded(accel: ShadedWideBVH, scene) -> ShadedWideBVH:
+    """The accel recomputed from the live ``scene`` (on the accel's
+    device): every real record's geometry, vertex normals, material id and
+    baked constants; the treelet boxes exactly, one float step outward and
+    NaN for empty treelets and row pads; the node boxes widened by the
+    largest vertex move since the build. Topology stays as built. Face ids
+    (column 9, denormal floats) are read and written only through an int32
+    view. The outputs are detached: they decide which face a ray hits, and
+    the gradient replays the hit from the live scene."""
+    if accel.build_vertices is None:
+        raise ValueError("accel was built without refit support")
+    mesh = scene.mesh
+    with torch.no_grad():
+        v = mesh.vertices.detach()
+        f = mesh.faces.long()
+        nf = int(f.shape[0])
+        flat_i = accel.tris.view(torch.int32).reshape(-1, STRIDE32)
+        fid = flat_i[:, 9]
+        ok = fid >= 0
+        fcl = torch.clamp(fid.long(), 0, max(nf - 1, 0))
+        p0 = v[f[fcl, 0]]
+        e1 = v[f[fcl, 1]] - p0
+        e2 = v[f[fcl, 2]] - p0
+        flat_n = torch.linalg.cross(e1, e2, dim=1)
+        flat_n = flat_n / torch.clamp_min(torch.linalg.norm(flat_n, dim=1, keepdim=True), 1e-20)
+        nidx = mesh.face_normal_idx.long()[fcl]
+        has = (nidx[:, 0] >= 0)[:, None]
+        norms = mesh.normals.detach()
+        ncl = torch.clamp(nidx, 0, norms.shape[0] - 1)
+        n0 = torch.where(has, norms[ncl[:, 0]], flat_n)
+        n1 = torch.where(has, norms[ncl[:, 1]], flat_n)
+        n2 = torch.where(has, norms[ncl[:, 2]], flat_n)
+        mat = mesh.material_id.long()[fcl]
+        em = scene.materials.emission.detach()[mat]
+        al = scene.materials.albedo.detach()[mat]
+        sc = scene.materials.scatter.detach()[mat][:, None]
+        okc = ok[:, None]
+        geo = torch.where(okc, torch.cat([p0, e1, e2], dim=1), flat_i[:, 0:9].view(torch.float32))
+        shade = torch.where(
+            okc, torch.cat([n0, n1, n2, mat.to(torch.float32)[:, None], em, al, sc], dim=1),
+            flat_i[:, 10:27].contiguous().view(torch.float32))
+        tris = torch.cat([
+            geo.contiguous().view(torch.int32), flat_i[:, 9:10],
+            shade.contiguous().view(torch.int32), flat_i[:, 27:],
+        ], dim=1).view(torch.float32).reshape(accel.tris.shape)
+
+        delta = torch.max(torch.abs(v - accel.build_vertices))
+        cb = accel.cboxes
+        cboxes = torch.cat([cb[:, 0:24] - delta, cb[:, 24:48] + delta, cb[:, 48:]], dim=1)
+
+        tboxes = accel.tboxes
+        if accel.num_treelets > 0 and tboxes is not None:
+            big = 1.0e30
+            lo = torch.where(okc, torch.minimum(torch.minimum(p0, p0 + e1), p0 + e2), big)
+            hi = torch.where(okc, torch.maximum(torch.maximum(p0, p0 + e1), p0 + e2), -big)
+            tpt = accel.leaves_per_treelet * accel.leaf_size
+            n_t = accel.num_treelets
+            tlo = lo.reshape(n_t, tpt, 3).min(dim=1).values
+            thi = hi.reshape(n_t, tpt, 3).max(dim=1).values
+            empty = (tlo > thi).any(dim=1)[:, None]
+            inf = torch.tensor(float("inf"), device=v.device)
+            tlo = torch.where(empty, float("nan"), torch.nextafter(tlo, -inf))
+            thi = torch.where(empty, float("nan"), torch.nextafter(thi, inf))
+            rows = tboxes.shape[0]
+            pad = torch.full((rows * 8 - n_t, 3), float("nan"), device=v.device)
+            tlo = torch.cat([tlo, pad])
+            thi = torch.cat([thi, pad])
+            cols = [tlo[:, ax].reshape(rows, 8) for ax in range(3)]
+            cols += [thi[:, ax].reshape(rows, 8) for ax in range(3)]
+            tboxes = torch.cat(cols + [torch.zeros((rows, 128 - 48), device=v.device)], dim=1)
+    return dataclasses.replace(accel, tris=tris, cboxes=cboxes, tboxes=tboxes)

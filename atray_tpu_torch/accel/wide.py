@@ -1,8 +1,14 @@
-"""8-wide collapse of the binary SAH BVH (``atray_tpu/accel/wide.py``).
+"""8-wide collapse of the binary SAH BVH and the unshaded ``WideBVH``
+(``atray_tpu/accel/wide.py``).
 
 Starting from the binary root, the cut node with the largest surface area
 is expanded until the cut holds 8 subtrees (or only leaves remain); each
 cut entry becomes a child slot. Host numpy in, numpy out.
+
+``WideBVH`` pairs those node tables with the stride-16 leaf rows of
+``accel/pack.py``; ``wide_exact`` (``kernels/wide_exact.py``) walks it.
+``make_accel`` builds it, ``refit_wide`` moves it with the vertices of an
+optimization loop, ``WideBVH.to(device)`` uploads it.
 
 Child-slot encoding (``clinks`` (8, W) i32):
 - internal child: wide-node id (>= 0)
@@ -18,12 +24,17 @@ children are sorted by centroid, ascending.
 
 from __future__ import annotations
 
+import dataclasses
 import sys
-from typing import List
+from typing import List, Optional
 
 import numpy as np
+import torch
 
-from atray_tpu_torch.accel.bvh import BVH
+from atray_tpu_torch.accel.bvh import BVH, build_bvh
+from atray_tpu_torch.accel.pack import TRIS_PER_ROW, pack_bvh
+from atray_tpu_torch.config import KDTreeConfig
+from atray_tpu_torch.scene.data import _Leaves
 
 EMPTY = np.int32(-2147483648)
 WIDTH = 8
@@ -126,3 +137,89 @@ def _collapse_wide_np(bvh: BVH):
     sys.setrecursionlimit(max(sys.getrecursionlimit(), 100_000))
     compute_depth(0, 1)
     return cboxes, clinks, caxis, int(depth.max())
+
+
+@dataclasses.dataclass(frozen=True)
+class WideBVH(_Leaves):
+    """Tables of the unshaded 8-wide walk. ``variant`` ("exact" or
+    "exact2") names the reference kernel that would walk it; one kernel
+    serves both here, so it selects nothing. ``slot_face`` and
+    ``build_vertices`` carry what ``refit_wide`` needs."""
+
+    cboxes: np.ndarray   # f32 (W, 128): child c, field f at lane 8f + c
+    clinks: np.ndarray   # i32 (8, W)
+    tris: np.ndarray     # f32 (rows_per_leaf * num_leaves, 128), stride 16
+    leaf_size: int
+    num_nodes: int
+    max_depth: int
+    variant: str = "exact"
+    caxis: Optional[np.ndarray] = None            # i32 (1, W)
+    slot_face: Optional[np.ndarray] = None        # i32 (slots,); -1 = pad
+    build_vertices: Optional[np.ndarray] = None   # f32 (V, 3)
+
+    @property
+    def rows_per_leaf(self) -> int:
+        return max(1, self.leaf_size // TRIS_PER_ROW)
+
+    @property
+    def device(self) -> torch.device:
+        cb = self.cboxes
+        return cb.device if isinstance(cb, torch.Tensor) else torch.device("cpu")
+
+
+def build_wide_bvh(bvh: BVH, tris_packed: np.ndarray) -> WideBVH:
+    """8-wide tables over a binary BVH; ``tris_packed`` is ``pack_bvh``'s
+    leaf rows, reused verbatim."""
+    cboxes, clinks, caxis, max_depth = _collapse_wide_np(bvh)
+    return WideBVH(cboxes=cboxes, clinks=clinks, tris=tris_packed, leaf_size=bvh.leaf_size,
+                   num_nodes=cboxes.shape[0], max_depth=max_depth, caxis=caxis)
+
+
+def wide_from_mesh(vertices, faces, config: Optional[KDTreeConfig] = None) -> WideBVH:
+    """Binary SAH build -> leaf pack -> 8-wide collapse, with refit data."""
+    cfg = config or KDTreeConfig(leaf_size=8)
+    bvh = build_bvh(vertices, faces, cfg)
+    wide = build_wide_bvh(bvh, pack_bvh(bvh).tris)
+    return dataclasses.replace(
+        wide, slot_face=np.asarray(bvh.tri_orig_id, np.int32),
+        build_vertices=np.asarray(vertices, np.float32))
+
+
+def make_accel(vertices, faces, config: Optional[KDTreeConfig] = None) -> WideBVH:
+    """The geometry-only accel of optimization loops: its leaf rows hold
+    only geometry, and shading reads the live scene through
+    ``render.wavefront.resolve_hit``. Host numpy; ``.to(device)`` uploads."""
+    return wide_from_mesh(vertices, faces, config)
+
+
+def refit_wide(accel: WideBVH, vertices: torch.Tensor, faces: torch.Tensor) -> WideBVH:
+    """The accel with its leaf records recomputed from ``vertices`` and
+    every node box widened by the largest vertex move since the build, so
+    the boxes still contain the moved triangles. Topology stays as built.
+    Face ids (column 9, denormal floats) move only through an int32 view.
+    The outputs are detached: they decide which face a ray hits, and the
+    gradient reads the live vertices through ``resolve_hit``."""
+    if accel.slot_face is None or accel.build_vertices is None:
+        raise ValueError("accel was built without refit support")
+    with torch.no_grad():
+        v = vertices.detach()
+        f = faces.long()
+        fid = accel.slot_face.long()
+        slots = fid.shape[0]
+        ls = accel.leaf_size
+        fcl = torch.clamp(fid, 0, max(f.shape[0] - 1, 0))
+        p0 = v[f[fcl, 0]]
+        e1 = v[f[fcl, 1]] - p0
+        e2 = v[f[fcl, 2]] - p0
+        ok = (fid >= 0)[:, None]
+        flat_i = accel.tris.view(torch.int32).reshape(-1, 16).clone()
+        s = torch.arange(slots, device=v.device)
+        rec = (s // ls) * (accel.rows_per_leaf * TRIS_PER_ROW) + (s % ls)
+        old9 = flat_i[rec, 0:9].view(torch.float32)
+        new9 = torch.where(ok, torch.cat([p0, e1, e2], dim=1), old9)
+        flat_i[rec, 0:9] = new9.contiguous().view(torch.int32)
+        tris = flat_i.view(torch.float32).reshape(accel.tris.shape)
+        delta = torch.max(torch.abs(v - accel.build_vertices))
+        cb = accel.cboxes
+        cboxes = torch.cat([cb[:, 0:24] - delta, cb[:, 24:48] + delta, cb[:, 48:]], dim=1)
+    return dataclasses.replace(accel, tris=tris, cboxes=cboxes)

@@ -4,7 +4,8 @@
 Conventions are the reference's: right-handed basis from eye/look_dir with
 world up (0, 1, 0); ``h_fov`` is the film half-width and the half-height is
 ``h_fov / aspect``; film coordinates span [-1, 1]; pixel (0, 0) is the
-top-left. The basis is host numpy; rays are tensors on the device asked for.
+top-left. The basis is host numpy; rays are tensors on the device asked for
+(``device=None`` means ``"cuda"``; pass ``device="cpu"`` for the CPU).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from atray_tpu_torch.core.intersect import normalize
+from atray_tpu_torch.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,15 +57,17 @@ def look_at_camera(eye, target, h_fov: float = 1.0, aspect: float = 16.0 / 9.0) 
 
 
 def camera_rays(
-    cam: Camera, width: int, height: int, spp: int, device="cpu",
+    cam: Camera, width: int, height: int, spp: int, device=None,
     anti_aliasing: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(origins, dirs), each (spp * height * width, 3) float32 on ``device``;
-    dirs are unit length, order is sample-major then row-major."""
+    """(origins, dirs), each (spp * height * width, 3) float32 on ``device``
+    (None: "cuda"); dirs are unit length, order is sample-major then
+    row-major."""
     if anti_aliasing:
         raise NotImplementedError(
             "anti_aliasing: AA jitter (threefry uniform bits) is not ported yet"
         )
+    device = resolve_device(device)
     f32 = torch.float32
     xs = (torch.arange(width, dtype=f32, device=device) + 0.5) / width * 2.0 - 1.0
     ys = 1.0 - (torch.arange(height, dtype=f32, device=device) + 0.5) / height * 2.0

@@ -1,7 +1,8 @@
 """Build, load and count the port's CUDA kernels.
 
 ``load()`` compiles every ``*.cu`` under ``atray_tpu_torch/csrc/`` with
-``nvcc`` into one shared library with a plain C interface, loads it with
+``nvcc`` (one process per source, all started together) and links the
+objects into one shared library with a plain C interface, loads it with
 ctypes, and caches it for the process. The library lives in the git-ignored
 ``atray_tpu_torch/_build/`` under a name keyed by a hash of the sources and
 flags, so a checkout builds what it needs at first use and never loads a
@@ -30,8 +31,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -41,6 +43,12 @@ _SIGNATURES = {
     ),
     "atray_wide_shade_stack_cap": [],
     "atray_lane_take": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
+    "atray_lane_scatter": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
+    "atray_wide_exact": (
+        [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P, ctypes.c_int]
+        + [_P] * 5
+    ),
+    "atray_wide_exact_stack_cap": [],
 }
 
 
@@ -57,11 +65,14 @@ class Counter:
         self.plain_calls = 0
 
 
-COUNTERS: Dict[str, Counter] = {"wide_shade": Counter(), "lane_take": Counter()}
+COUNTERS: Dict[str, Counter] = {
+    name: Counter() for name in ("wide_shade", "lane_take", "lane_scatter", "wide_exact")
+}
 
 
 class _Loaded:
     lib: Optional[ctypes.CDLL] = None
+    log: str = ""        # ptxas resource lines of this process's build
 
 
 _loaded = _Loaded()
@@ -83,7 +94,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         with open(src, "rb") as fh:
             h.update(os.path.basename(src).encode() + b"\0" + fh.read())
@@ -92,19 +103,35 @@ def library_path() -> str:
 
 def _compile(lib_path: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         cu = [s for s in _sources() if s.endswith(".cu")]
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o") for src in cu]
+        procs = []
+        try:
+            for src, obj in zip(cu, objs):
+                procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                              text=True))
+            errors = []
+            for src, proc in zip(cu, procs):
+                _, err = proc.communicate(timeout=900)
+                _loaded.log += "".join(ln + "\n" for ln in err.splitlines() if "ptxas info" in ln)
+                if proc.returncode != 0:
+                    errors.append(f"{os.path.basename(src)} (exit {proc.returncode}):\n{err}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        so = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", so, *objs],
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):\n{proc.stderr}")
+        os.replace(so, lib_path)
 
 
 def load() -> ctypes.CDLL:

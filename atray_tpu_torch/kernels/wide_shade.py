@@ -19,7 +19,7 @@ counterpart: they shape a lockstep walk, not its result.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -100,13 +100,15 @@ def _inv_dir(d):
 
 
 def wide_shade_planes_ref(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz,
-                          alive) -> Dict[str, torch.Tensor]:
+                          alive, visits: Optional[dict] = None) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version of the kernel: a vectorized walk in which every
     live ray keeps its own stack. Each iteration pops one node for every ray
     whose stack is not empty, tests its 8 child boxes against the ray's
     best_t, then visits the children in the kernel's per-ray order, pushing
     interior children and testing leaves (16 records at once per ray; the
-    first minimal t wins, as in the kernel's sequential strict-< loop)."""
+    first minimal t wins, as in the kernel's sequential strict-< loop).
+    With a ``visits`` dict it adds the node pops and leaf records tested
+    ("nodes", "records"), the work this input needs."""
     COUNTER.plain_calls += 1
     dev = ox.device
     n = ox.shape[0]
@@ -136,10 +138,12 @@ def wide_shade_planes_ref(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz,
     recs = accel.tris.reshape(-1, STRIDE32)
     recs_i = recs.view(i32)
     ks = torch.arange(accel.leaf_size, device=dev)
+    counts = {"nodes": 0, "records": 0}
 
     def leaf_test(rows, leaf_row):
         ridx = leaf_row[:, None] * RECS_PER_ROW + ks[None, :]     # (j, L)
         rec = recs[ridx]                                           # (j, L, 32)
+        counts["records"] += ridx.numel()
         oc = o[rows]
         dc = d[rows]
         rox, roy, roz = oc[:, 0:1], oc[:, 1:2], oc[:, 2:3]
@@ -181,6 +185,7 @@ def wide_shade_planes_ref(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz,
         cur = torch.nonzero(sp > 0).squeeze(1)
         if cur.numel() == 0:
             break
+        counts["nodes"] += cur.numel()
         sp[cur] -= 1
         node = stack[cur, sp[cur]]
         oc = o[cur][:, :, None]
@@ -208,6 +213,9 @@ def wide_shade_planes_ref(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz,
             if leaf.any():
                 leaf_test(cur[leaf], -(lk[leaf] + 1))
 
+    if visits is not None:
+        for k in counts:
+            visits[k] = visits.get(k, 0) + counts[k]
     rlen = torch.rsqrt(torch.clamp_min(
         best_n[:, 0] * best_n[:, 0] + best_n[:, 1] * best_n[:, 1]
         + best_n[:, 2] * best_n[:, 2], 1.0e-20))

@@ -1,1 +1,2 @@
-"""Forward renderer: wavefront bounces, per-ray random numbers, film."""
+"""Renderer: wavefront bounces with path-replay gradients, per-ray random
+numbers, film."""

@@ -2,8 +2,9 @@
 
 Keys are host numpy ``uint32[2]`` arrays; there is no global RNG state.
 
-- ``prng_key(seed)`` and ``split(key, num)`` reproduce
-  ``jax.random.PRNGKey`` and ``jax.random.split`` for the default threefry
+- ``prng_key(seed)``, ``split(key, num)`` and ``fold_in(key, data)``
+  reproduce ``jax.random.PRNGKey``, ``jax.random.split`` and
+  ``jax.random.fold_in`` for the default threefry
   implementation with ``jax_threefry_partitionable`` on (the default of the
   jax the reference is tested with): split counts are a 64-bit iota given
   to threefry2x32 as (hi, lo) words.
@@ -61,6 +62,17 @@ def split(key, num: int = 2) -> np.ndarray:
         b1, b2 = threefry2x32(key[0], key[1], np.zeros(num, np.uint32),
                               np.arange(num, dtype=np.uint32))
     return np.stack([b1, b2], axis=1)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)``: threefry2x32 of the key over the
+    32-bit ``data`` as the (0, data) word pair. The trainer's per-step keys
+    are ``fold_in(prng_key(seed), step)``."""
+    key = np.asarray(key, np.uint32).reshape(2)
+    with np.errstate(over="ignore"):
+        b1, b2 = threefry2x32(key[0], key[1], np.zeros(1, np.uint32),
+                              np.array([int(data) & _M32], np.uint32))
+    return np.array([b1[0], b2[0]], np.uint32)
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:

@@ -1,17 +1,37 @@
-"""Wavefront path tracer, forward pass (``atray_tpu/render/wavefront.py``).
+"""Wavefront path tracer with path-replay gradients
+(``atray_tpu/render/wavefront.py``).
 
-All rays of a chunk advance together through the bounces: nearest hit
-(the ``wide_shade`` kernel), sphere and plane patch-in, shading, respawn.
-Every per-ray quantity is a flat (R,) plane, as in the reference. Every
-random number is a pure function of (key, global ray id, bounce)
-(``render/rng.py``), so chunked, compacted and whole-frame renders give the
-same film bit-for-bit.
+All rays of a chunk advance together through the bounces: nearest hit,
+sphere and plane patch-in, shading, respawn. Every per-ray quantity is a
+flat (R,) plane, as in the reference. Every random number is a pure
+function of (key, global ray id, bounce) (``render/rng.py``), so chunked,
+compacted and whole-frame renders give the same film bit-for-bit.
+
+Two hit paths, chosen by the accel:
+
+- ``ShadedWideBVH`` (the production path): ``wide_shade`` returns t, face
+  id, the interpolated normal and the material id in one kernel call. The
+  call is a ``torch.autograd.Function`` whose backward replays
+  Möller–Trumbore and the normal from the saved face id and the per-trace
+  face table in plain PyTorch, so the backward never walks the BVH again.
+- ``WideBVH`` (``make_accel``, the trainer's accel): ``nearest_hit_ids``
+  walks it with ``wide_exact`` for integer hit ids, and the differentiable
+  ``resolve_hit`` recomputes the hit from them. The ids are what each
+  bounce keeps for the backward.
+
+Gradients follow the detached-visibility convention: which primitive a ray
+hits carries no derivative; t, barycentrics, normals and material
+constants do, down to vertices, vertex normals, emission, albedo and
+scatter. With ``remat`` (the default) each bounce's shading runs under
+``torch.utils.checkpoint`` with the hit call outside it: the backward
+recomputes the cheap elementwise shading and reuses the saved hit.
 
 Schedule (the reference's production one): bounce 0, then the first
 diffuse bounce at full width, then ONE compaction (``compact_state``: rows
 sorted by origin cell with dead rays last, then live rays packed to a lane
-prefix by the ``lane_take`` kernel), then the remaining bounces. Python
-loops take the place of ``lax.scan`` and ``lax.map``.
+prefix by the lane-take kernel, whose VJP is the lane-scatter kernel), then
+the remaining bounces. Python loops take the place of ``lax.scan`` and
+``lax.map``.
 
 Shading convention (shared with the reference and its oracle):
 - miss -> color += weight * emission[0] (sky), the path ends;
@@ -20,11 +40,10 @@ Shading convention (shared with the reference and its oracle):
   next direction blends a jittered diffuse and a mirror bounce by scatter.
 
 Not ported yet, and refused with NotImplementedError: NEE, AA jitter,
-textures, the pair-binned traversal, explicit uniforms, hit overrides,
-the brute-force triangle path (``accel=None`` with triangles) and
-gradients (the slice runs under ``torch.no_grad``). The reference's TPU
-schedule switches (``ATRAY_*`` environment variables) are not carried:
-they select film-identical variants.
+textures, the pair-binned traversal, explicit uniforms, hit overrides and
+the brute-force triangle path (``accel=None`` with triangles). The
+reference's TPU schedule switches (``ATRAY_*`` environment variables) are
+not carried: they select film-identical variants.
 """
 
 from __future__ import annotations
@@ -33,15 +52,38 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from atray_tpu_torch.accel.shaded import ShadedWideBVH
+from atray_tpu_torch.accel.wide import WideBVH
 from atray_tpu_torch.config import RenderSettings
 from atray_tpu_torch.core.camera import Camera, camera_rays
-from atray_tpu_torch.core.intersect import INF, cross, normalize
-from atray_tpu_torch.kernels.lane_pack import lane_take, pack_indices, unpack_indices
+from atray_tpu_torch.core.intersect import (
+    INF,
+    cross,
+    dot,
+    moller_trumbore,
+    normalize,
+    plane_hits,
+    sphere_hits,
+)
+from atray_tpu_torch.device import resolve_device
+from atray_tpu_torch.kernels.lane_pack import (
+    lane_take,
+    lane_take_p,
+    pack_indices,
+    unpack_indices,
+)
+from atray_tpu_torch.kernels.wide_exact import wide_exact_first_hit
 from atray_tpu_torch.kernels.wide_shade import wide_shade_planes
 from atray_tpu_torch.render.rng import ray_uniform_cols, split
 from atray_tpu_torch.scene.data import Scene
+
+# primitive type codes of a hit record (the reference's)
+PRIM_NONE = 0
+PRIM_TRI = 1
+PRIM_SPHERE = 2
+PRIM_PLANE = 3
 
 
 class WaveState(NamedTuple):
@@ -65,25 +107,42 @@ class WaveState(NamedTuple):
     rc: torch.Tensor
 
 
+class HitIds(NamedTuple):
+    """Discrete outcome of a nearest-hit query (all detached)."""
+
+    prim_type: torch.Tensor  # (R,) int32 in {NONE, TRI, SPHERE, PLANE}
+    prim_id: torch.Tensor    # (R,) int32 index within its class, -1 if none
+    t: torch.Tensor          # (R,) f32, INF on a miss
+
+
+def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` along dim 0 through ``index_select``, whose backward
+    is an ``index_add_``; the backward of ``table[idx]`` sorts the indices
+    first and took about 130 ms per call on the gradient config's
+    2,073,600 rows (``chip_smoke.py`` phase 8 profile, H100)."""
+    return torch.index_select(table, 0, idx)
+
+
 def build_face_table(scene: Scene) -> Optional[torch.Tensor]:
     """(T, 20) per-face table [p0, e1, e2, n0, n1, n2, material_id, pad];
     faces without smooth normals get the flat normal in all three slots.
-    The forward slice does not read it; NEE and the gradient replay will."""
+    Built once per trace from the live scene, so gradients of the hit
+    replay and of ``resolve_hit`` reach vertices and vertex normals."""
     mesh = scene.mesh
     if mesh.num_faces == 0:
         return None
     v = mesh.vertices
     f = mesh.faces.long()
-    p0 = v[f[:, 0]]
-    e1 = v[f[:, 1]] - p0
-    e2 = v[f[:, 2]] - p0
+    p0 = _rows(v, f[:, 0])
+    e1 = _rows(v, f[:, 1]) - p0
+    e2 = _rows(v, f[:, 2]) - p0
     flat_n = normalize(cross(e1, e2))
     nidx = mesh.face_normal_idx.long()
     has_smooth = (nidx[:, 0] >= 0)[:, None]
     ncl = torch.clamp(nidx, 0, mesh.normals.shape[0] - 1)
-    n0 = torch.where(has_smooth, mesh.normals[ncl[:, 0]], flat_n)
-    n1 = torch.where(has_smooth, mesh.normals[ncl[:, 1]], flat_n)
-    n2 = torch.where(has_smooth, mesh.normals[ncl[:, 2]], flat_n)
+    n0 = torch.where(has_smooth, _rows(mesh.normals, ncl[:, 0]), flat_n)
+    n1 = torch.where(has_smooth, _rows(mesh.normals, ncl[:, 1]), flat_n)
+    n2 = torch.where(has_smooth, _rows(mesh.normals, ncl[:, 2]), flat_n)
     mat = mesh.material_id.to(torch.float32)[:, None]
     return torch.cat([p0, e1, e2, n0, n1, n2, mat, torch.zeros_like(mat)], dim=1)
 
@@ -213,48 +272,222 @@ def _patch_spheres_planes(scene, ox, oy, oz, dx, dy, dz, t, nx, ny, nz, hit,
     return t, nx, ny, nz, hit, emr, emg, emb, alr, alg, alb, scat
 
 
-def fused_hit_shade(scene: Scene, accel: Optional[ShadedWideBVH],
-                    ox, oy, oz, dx, dy, dz, alive):
-    """Nearest hit over every primitive class as flat planes
-    (t, nx, ny, nz, hit, em_r, em_g, em_b, al_r, al_g, al_b, scatter):
-    triangles through ``wide_shade_planes``, material constants from the
-    returned material id, then spheres and planes patched in."""
+# ---------------------------------------------------------------------------
+# The fused hit (ShadedWideBVH): kernel forward, path-replay backward
+# ---------------------------------------------------------------------------
+
+
+def _replay_hit(face_table, fid_c, ox, oy, oz, dx, dy, dz):
+    """Differentiable recompute of a fused hit from its face id: t and the
+    normalized barycentric normal, with the kernel's Möller–Trumbore and
+    interpolation op order."""
+    row = _rows(face_table, fid_c)                # one (R, 20) gather
+    p0x, p0y, p0z = row[:, 0], row[:, 1], row[:, 2]
+    e1x, e1y, e1z = row[:, 3], row[:, 4], row[:, 5]
+    e2x, e2y, e2z = row[:, 6], row[:, 7], row[:, 8]
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    ok = torch.abs(det) > 1.0e-12
+    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
+    tvx = ox - p0x
+    tvy = oy - p0y
+    tvz = oz - p0z
+    uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    w0 = 1.0 - uu - vv
+    nx = w0 * row[:, 9] + uu * row[:, 12] + vv * row[:, 15]
+    ny = w0 * row[:, 10] + uu * row[:, 13] + vv * row[:, 16]
+    nz = w0 * row[:, 11] + uu * row[:, 14] + vv * row[:, 17]
+    return (tt, *_norm3(nx, ny, nz))
+
+
+class _FusedHit(torch.autograd.Function):
+    """Forward: the ``wide_shade`` kernel (t, nx, ny, nz, face id, material
+    id). Backward: the hit replayed from the saved face id, ray planes and
+    face table (``_replay_hit``), miss-lane cotangents zeroed; no walk."""
+
+    @staticmethod
+    def forward(ctx, accel, face_table, ox, oy, oz, dx, dy, dz, alive):
+        fo = wide_shade_planes(accel, ox, oy, oz, dx, dy, dz, alive)
+        ctx.mark_non_differentiable(fo["id"], fo["mat"])
+        ctx.save_for_backward(face_table, ox, oy, oz, dx, dy, dz, fo["id"])
+        return fo["t"], fo["nx"], fo["ny"], fo["nz"], fo["id"], fo["mat"]
+
+    @staticmethod
+    def backward(ctx, g_t, g_nx, g_ny, g_nz, _g_id, _g_mat):
+        face_table, ox, oy, oz, dx, dy, dz, fid = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:8]
+        if not any(need):
+            return (None,) * 9
+        hit = fid >= 0
+        fid_c = torch.clamp(fid, 0, face_table.shape[0] - 1).long()
+        with torch.enable_grad():
+            ins = [x.detach().requires_grad_(r)
+                   for x, r in zip((face_table, ox, oy, oz, dx, dy, dz), need)]
+            outs = _replay_hit(ins[0], fid_c, *ins[1:])
+            cot = [torch.where(hit, g, 0.0) for g in (g_t, g_nx, g_ny, g_nz)]
+            grads = iter(torch.autograd.grad(outs, [x for x in ins if x.requires_grad], cot,
+                                             allow_unused=True))
+        return (None, *(next(grads) if r else None for r in need), None)
+
+
+def fused_hit(scene: Scene, accel: Optional[ShadedWideBVH], face_table,
+              ox, oy, oz, dx, dy, dz, alive):
+    """Triangle-class nearest hit over a ``ShadedWideBVH``:
+    (t, nx, ny, nz, face id, material id) as flat planes."""
     if scene.mesh.num_faces > 0:
         if accel is None:
             raise NotImplementedError(
                 "accel=None with triangles: the brute-force triangle path is not "
-                "ported yet; pass build_shaded_accel(scene).to(device)")
-        fo = wide_shade_planes(accel, ox, oy, oz, dx, dy, dz, alive)
-        t, nx, ny, nz = fo["t"], fo["nx"], fo["ny"], fo["nz"]
-        hit = fo["id"] >= 0
-        mats = resolve_material_comps(scene, fo["mat"], hit)
-    else:
-        t = torch.full_like(ox, INF)
-        nx = ny = nz = torch.zeros_like(ox)
-        hit = torch.zeros_like(alive)
-        mats = (torch.zeros_like(ox),) * 7
-    return _patch_spheres_planes(scene, ox, oy, oz, dx, dy, dz, t, nx, ny, nz,
-                                 hit, *mats)
+                "ported yet; pass build_shaded_accel(scene) or make_accel(...)")
+        return _FusedHit.apply(accel, face_table, ox, oy, oz, dx, dy, dz, alive)
+    t = torch.full_like(ox, INF)
+    zero = torch.zeros_like(ox)
+    fid = torch.full(ox.shape, -1, dtype=torch.int32, device=ox.device)
+    return t, zero, zero, zero, fid, torch.zeros_like(fid)
 
 
-def bounce_step(scene: Scene, accel, st: WaveState, b: int, key) -> WaveState:
-    """One wavefront bounce over flat (R,) planes."""
-    ox, oy, oz, dx, dy, dz = st.ox, st.oy, st.oz, st.dx, st.dy, st.dz
-    wr, wg, wb, cr, cg, cb, alive = st.wr, st.wg, st.wb, st.cr, st.cg, st.cb, st.alive
-    u0, u1, u2 = ray_uniform_cols(key, st.gid, b, 3)
-    # rays cast = live paths entering the bounce
-    rc = st.rc + alive.sum()
+def _shade_fused(scene, face_table, ox, oy, oz, dx, dy, dz, t, nx, ny, nz, fid, mat):
+    """Hit planes of the fused path: material constants from the material
+    id, then spheres and planes patched in."""
+    hit = fid >= 0
+    mats = resolve_material_comps(scene, mat, hit)
+    return _patch_spheres_planes(scene, ox, oy, oz, dx, dy, dz, t, nx, ny, nz, hit, *mats)
 
-    (t, nx, ny, nz, hit, emr, emg, emb, alr, alg, alb,
-     scat) = fused_hit_shade(scene, accel, ox, oy, oz, dx, dy, dz, alive)
+
+# ---------------------------------------------------------------------------
+# The gather path (WideBVH): integer hit ids + differentiable resolve
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def nearest_hit_ids(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
+                    accel: Optional[WideBVH] = None) -> HitIds:
+    """Nearest primitive per ray over every class: triangles through the
+    ``wide_exact`` walk of a ``WideBVH``, then spheres, then planes, a later
+    class winning only on a strictly smaller t. Detached by intent."""
+    o = orig.detach().contiguous()
+    d = dirn.detach().contiguous()
+    r = o.shape[0]
+    best_t = torch.full((r,), INF, dtype=torch.float32, device=o.device)
+    best_type = torch.zeros((r,), dtype=torch.int32, device=o.device)
+    best_id = torch.full((r,), -1, dtype=torch.int32, device=o.device)
+
+    def merge(t, pid, kind):
+        closer = t < best_t
+        best_t.copy_(torch.where(closer, t, best_t))
+        best_type.copy_(torch.where(closer, kind, best_type))
+        best_id.copy_(torch.where(closer, pid, best_id))
+
+    if scene.mesh.num_faces > 0:
+        if accel is None:
+            raise NotImplementedError(
+                "accel=None with triangles: the brute-force triangle path is not "
+                "ported yet; pass make_accel(...)")
+        if not isinstance(accel, WideBVH):
+            raise TypeError(f"nearest_hit_ids takes a WideBVH, not {type(accel).__name__}")
+        t, _, _, tid = wide_exact_first_hit(accel, o, d)
+        merge(t, tid, PRIM_TRI)
+    if scene.spheres.count > 0:
+        merge(*sphere_hits(o, d, scene.spheres.centers, scene.spheres.radii), PRIM_SPHERE)
+    if scene.planes.count > 0:
+        merge(*plane_hits(o, d, scene.planes.normals, scene.planes.offsets), PRIM_PLANE)
+    return HitIds(best_type, best_id, best_t)
+
+
+def resolve_hit(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor, ids: HitIds,
+                face_table: Optional[torch.Tensor] = None):
+    """Differentiable recompute of the hit from its ids: (t, shading normal
+    (R, 3), material id, hit). Gradients reach vertices and vertex normals
+    through ``face_table`` (``build_face_table``), and the ray rows."""
+    r = orig.shape[0]
+    dev = orig.device
+    t = torch.full((r,), INF, dtype=torch.float32, device=dev)
+    normal = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    mat = torch.zeros((r,), dtype=torch.int32, device=dev)
+    is_tri = ids.prim_type == PRIM_TRI
+    is_sph = ids.prim_type == PRIM_SPHERE
+    is_pln = ids.prim_type == PRIM_PLANE
+
+    if scene.mesh.num_faces > 0:
+        if face_table is None:
+            face_table = build_face_table(scene)
+        fid = torch.clamp(ids.prim_id, 0, scene.mesh.num_faces - 1).long()
+        row = _rows(face_table, fid)                   # one (R, 20) gather
+        tt, u, vv, _ = moller_trumbore(orig, dirn, row[:, 0:3], row[:, 3:6], row[:, 6:9])
+        w0 = (1.0 - u - vv)[:, None]
+        tri_n = normalize(w0 * row[:, 9:12] + u[:, None] * row[:, 12:15]
+                          + vv[:, None] * row[:, 15:18])
+        t = torch.where(is_tri, tt, t)
+        normal = torch.where(is_tri[:, None], tri_n, normal)
+        mat = torch.where(is_tri, row[:, 18].detach().to(torch.int32), mat)
+
+    if scene.spheres.count > 0:
+        sid = torch.clamp(ids.prim_id, 0, scene.spheres.count - 1).long()
+        c = scene.spheres.centers[sid]
+        rad = scene.spheres.radii[sid]
+        oc = orig - c
+        b = dot(oc, dirn)
+        disc = b * b - (dot(oc, oc) - rad * rad)
+        pos = disc > 0.0
+        sq = torch.where(pos, torch.sqrt(torch.where(pos, disc, 1.0)), 0.0)
+        t0 = -b - sq
+        ts = torch.where(t0 > 1e-4, t0, -b + sq)
+        t = torch.where(is_sph, ts, t)
+        normal = torch.where(is_sph[:, None], normalize(orig + ts[:, None] * dirn - c), normal)
+        mat = torch.where(is_sph, scene.spheres.material_id[sid].to(torch.int32), mat)
+
+    if scene.planes.count > 0:
+        pid = torch.clamp(ids.prim_id, 0, scene.planes.count - 1).long()
+        pn = scene.planes.normals[pid]
+        denom = dot(dirn, pn)
+        safe = torch.where(torch.abs(denom) > 1e-12, denom, 1.0)
+        tp = (scene.planes.offsets[pid] - dot(orig, pn)) / safe
+        t = torch.where(is_pln, tp, t)
+        normal = torch.where(is_pln[:, None], pn, normal)
+        mat = torch.where(is_pln, scene.planes.material_id[pid].to(torch.int32), mat)
+
+    # a lane whose recompute missed (a grazing hit decided by one ulp, or
+    # stale tables) is demoted: an INF hit point would poison the backward
+    hit = (ids.prim_type != PRIM_NONE) & (t < 1.0e30)
+    return t, normal, torch.where(hit, mat, 0), hit
+
+
+def _shade_standard(scene, face_table, ox, oy, oz, dx, dy, dz, prim_type, prim_id, t_hit):
+    """Hit planes of the gather path from the saved ids."""
+    o3 = torch.stack([ox, oy, oz], dim=1)
+    d3 = torch.stack([dx, dy, dz], dim=1)
+    t, n, mat, hit = resolve_hit(scene, o3, d3, HitIds(prim_type, prim_id, t_hit), face_table)
+    return (t, n[:, 0], n[:, 1], n[:, 2], hit, *resolve_material_comps(scene, mat, hit))
+
+
+# ---------------------------------------------------------------------------
+# Bounces
+# ---------------------------------------------------------------------------
+
+
+def _shade_bounce(scene, face_table, shade_hit, key, b, ox, oy, oz, dx, dy, dz,
+                  wr, wg, wb, cr, cg, cb, alive, gid, *hit):
+    """Everything of a bounce after the hit query: hit planes from the
+    saved hit, shading, respawn. Pure elementwise work, recomputed in the
+    backward under ``remat``."""
+    u0, u1, u2 = ray_uniform_cols(key, gid, b, 3)
+    (t, nx, ny, nz, hit_m, emr, emg, emb, alr, alg, alb,
+     scat) = shade_hit(scene, face_table, ox, oy, oz, dx, dy, dz, *hit)
 
     sky = scene.materials.emission[0]
-    miss_now = alive & ~hit
+    miss_now = alive & ~hit_m
     cr = cr + torch.where(miss_now, wr * sky[0], 0.0)
     cg = cg + torch.where(miss_now, wg * sky[1], 0.0)
     cb = cb + torch.where(miss_now, wb * sky[2], 0.0)
 
-    live_hit = alive & hit
+    live_hit = alive & hit_m
     cos_in = -(dx * nx + dy * ny + dz * nz)
     backface = cos_in < 0.0
     nxo = torch.where(backface, -nx, nx)
@@ -266,7 +499,8 @@ def bounce_step(scene: Scene, accel, st: WaveState, b: int, key) -> WaveState:
     cg = cg + torch.where(live_hit, wg * emg, 0.0)
     cb = cb + torch.where(live_hit, wb * emb, 0.0)
 
-    t_safe = torch.where(hit, t, 0.0)
+    # t is INF on misses: zero it so the untaken branch stays finite
+    t_safe = torch.where(hit_m, t, 0.0)
     hx = ox + t_safe * dx
     hy = oy + t_safe * dy
     hz = oz + t_safe * dz
@@ -278,12 +512,36 @@ def bounce_step(scene: Scene, accel, st: WaveState, b: int, key) -> WaveState:
     ndx, ndy, ndz = _bounce_dir_soa(dx, dy, dz, nxo, nyo, nzo, scat, u0, u1, u2)
     alive = live_hit
     # park dead rays far outside the scene, pointing +z
-    return WaveState(
-        torch.where(alive, hx, 1.0e7), torch.where(alive, hy, 1.0e7),
-        torch.where(alive, hz, 1.0e7), torch.where(alive, ndx, 0.0),
-        torch.where(alive, ndy, 0.0), torch.where(alive, ndz, 1.0),
-        wr, wg, wb, cr, cg, cb, alive, st.gid, rc,
-    )
+    return (torch.where(alive, hx, 1.0e7), torch.where(alive, hy, 1.0e7),
+            torch.where(alive, hz, 1.0e7), torch.where(alive, ndx, 0.0),
+            torch.where(alive, ndy, 0.0), torch.where(alive, ndz, 1.0),
+            wr, wg, wb, cr, cg, cb, alive)
+
+
+def bounce_step(scene: Scene, accel, face_table, st: WaveState, b: int, key,
+                remat: bool = True) -> WaveState:
+    """One wavefront bounce over flat (R,) planes: the hit query, then
+    ``_shade_bounce``, checkpointed with ``remat``."""
+    ox, oy, oz, dx, dy, dz = st.ox, st.oy, st.oz, st.dx, st.dy, st.dz
+    # rays cast = live paths entering the bounce
+    rc = st.rc + st.alive.sum()
+    if isinstance(accel, WideBVH):
+        ids = nearest_hit_ids(scene, torch.stack([ox, oy, oz], dim=1),
+                              torch.stack([dx, dy, dz], dim=1), accel)
+        hit, shade_hit = tuple(ids), _shade_standard
+    else:
+        hit = fused_hit(scene, accel, face_table, ox, oy, oz, dx, dy, dz, st.alive)
+        shade_hit = _shade_fused
+
+    def shade(*planes):
+        return _shade_bounce(scene, face_table, shade_hit, key, b, *planes)
+
+    args = (*st[:14], *hit)
+    if remat:
+        out = checkpoint(shade, *args, use_reentrant=False)
+    else:
+        out = shade(*args)
+    return WaveState(*out, st.gid, rc)
 
 
 def _spread3(x):
@@ -294,6 +552,7 @@ def _spread3(x):
     return (x | (x << 2)) & 0x09249249
 
 
+@torch.no_grad()
 def sort_key(scene: Scene, ox, oy, oz, dx, dy, dz, alive) -> torch.Tensor:
     """Compaction key: dead rays last; live rays by the Morton code of the
     origin cell (6 bits per axis over the mesh bounds), direction octant as
@@ -321,36 +580,30 @@ Restore = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], Tuple[torch.Tenso
 
 
 def _lane_pack_state(st: WaveState) -> Tuple[WaveState, Restore]:
-    """Stable live-ray packing of the state with ONE ``lane_take`` over 14
-    planes of 32-bit words: the 12 float planes (bit views), liveness and
-    the int32 global ray id, which therefore stays exact at any size.
-    Returns the packed state and ``lane_restore(cr, cg, cb)``, which routes
-    results back; rays already dead at pack time keep their radiance."""
+    """Stable live-ray packing of the state: the 12 float planes through
+    ``lane_take_p`` (differentiable: its backward is ``lane_scatter``),
+    liveness and the int32 global ray id through a plain int ``lane_take``
+    (a second launch), so ids stay exact at any size. Returns the packed
+    state and ``lane_restore(cr, cg, cb)``, which routes results back
+    (``lane_take_p`` again); rays already dead at pack time keep their
+    radiance."""
     alive = st.alive
     pidx = pack_indices(alive)
     uidx = unpack_indices(alive)
-    floats = (st.ox, st.oy, st.oz, st.dx, st.dy, st.dz,
-              st.wr, st.wg, st.wb, st.cr, st.cg, st.cb)
-    cols = torch.stack([x.view(torch.int32) for x in floats]
-                       + [alive.to(torch.int32), st.gid.to(torch.int32)])
-    pk = lane_take(cols, pidx)
-
-    def f(k):
-        return pk[k].view(torch.float32)
-
-    alive2 = pk[12] != 0
+    pk = lane_take_p(torch.stack(st[:12]), pidx)
+    ints = lane_take(torch.stack([alive.to(torch.int32), st.gid.to(torch.int32)]), pidx)
+    alive2 = ints[0] != 0
     packed = WaveState(
-        torch.where(alive2, f(0), 1.0e7), torch.where(alive2, f(1), 1.0e7),
-        torch.where(alive2, f(2), 1.0e7), torch.where(alive2, f(3), 0.0),
-        torch.where(alive2, f(4), 0.0), torch.where(alive2, f(5), 1.0),
-        f(6), f(7), f(8), f(9), f(10), f(11), alive2, pk[13], st.rc,
+        torch.where(alive2, pk[0], 1.0e7), torch.where(alive2, pk[1], 1.0e7),
+        torch.where(alive2, pk[2], 1.0e7), torch.where(alive2, pk[3], 0.0),
+        torch.where(alive2, pk[4], 0.0), torch.where(alive2, pk[5], 1.0),
+        pk[6], pk[7], pk[8], pk[9], pk[10], pk[11], alive2, ints[1], st.rc,
     )
     c_pre = (st.cr, st.cg, st.cb)
 
     def lane_restore(cr, cg, cb):
-        up = lane_take(torch.stack([x.view(torch.int32) for x in (cr, cg, cb)]), uidx)
-        return tuple(torch.where(alive, up[k].view(torch.float32), c_pre[k])
-                     for k in range(3))
+        up = lane_take_p(torch.stack([cr, cg, cb]), uidx)
+        return tuple(torch.where(alive, up[k], c_pre[k]) for k in range(3))
 
     return packed, lane_restore
 
@@ -368,12 +621,12 @@ def compact_state(scene: Scene, st: WaveState, lane_pack: bool) -> Tuple[WaveSta
         perm = torch.argsort(keys.reshape(rows, lane).min(dim=1).values, stable=True)
 
         def take(x, p):
-            return x.reshape(rows, lane)[p].reshape(-1)
+            return _rows(x.reshape(rows, lane), p).reshape(-1)
     else:
         perm = torch.argsort(keys, stable=True)
 
         def take(x, p):
-            return x[p]
+            return _rows(x, p)
 
     inv = torch.argsort(perm)
     st = WaveState(*(take(x, perm) for x in st[:14]), st.rc)
@@ -398,21 +651,40 @@ def _refuse(nee=False, pair_bounces=False, anti_aliasing=False):
             raise NotImplementedError(f"{name}=True is not ported yet")
 
 
-@torch.no_grad()
+def _accel_on(accel, dev: torch.device):
+    """A host accel uploaded to ``dev``; an uploaded one must be there."""
+    if accel is None:
+        return None
+    if not isinstance(accel, (ShadedWideBVH, WideBVH)):
+        raise TypeError(f"unknown accel type {type(accel).__name__}")
+    if not isinstance(accel.cboxes, torch.Tensor):
+        return accel.to(dev)
+    if accel.device != dev:
+        raise ValueError(f"accel is on {accel.device}, the rays on {dev}")
+    return accel
+
+
 def trace_radiance(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
-                   bounce_limit: int, key, accel: Optional[ShadedWideBVH] = None,
+                   bounce_limit: int, key, accel=None,
                    sort_rays: bool = False, nee: bool = False,
                    return_stats: bool = False,
                    ray_ids: Optional[torch.Tensor] = None,
-                   lane_pack: bool = True, pair_bounces: bool = False):
-    """Path-trace each ray to its radiance (R, 3). ``key`` is the uint32[2]
-    bounce key; ``ray_ids`` (default 0..R-1) are the global ids that key
-    the per-ray random numbers. With ``return_stats`` also returns
-    ``{"rays_cast": int64 tensor}``, the live paths summed over bounces."""
+                   lane_pack: bool = True, pair_bounces: bool = False,
+                   remat: bool = True):
+    """Path-trace each ray to its radiance (R, 3) on the rays' device (the
+    scene and a host accel are moved there). ``accel`` is a
+    ``ShadedWideBVH`` (fused hit) or a ``WideBVH`` (gather path). ``key``
+    is the uint32[2] bounce key; ``ray_ids`` (default 0..R-1) are the global
+    ids that key the per-ray random numbers. Differentiable with respect
+    to the scene's float leaves and the rays. With ``return_stats`` also
+    returns ``{"rays_cast": int64 tensor}``, the live paths summed over
+    bounces."""
     _refuse(nee=nee, pair_bounces=pair_bounces)
     if scene.texture is not None:
         raise NotImplementedError("textured scenes are not ported yet")
     dev = orig.device
+    scene = scene.to(dev)
+    accel = _accel_on(accel, dev)
     r = orig.shape[0]
     if ray_ids is None:
         ray_ids = torch.arange(r, dtype=torch.int32, device=dev)
@@ -425,19 +697,26 @@ def trace_radiance(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
         torch.ones(r, dtype=torch.bool, device=dev), ray_ids.to(torch.int32),
         torch.zeros((), dtype=torch.int64, device=dev),
     )
+    face_table = build_face_table(scene)
+    # checkpoint only where autograd records something to replay
+    remat = remat and torch.is_grad_enabled() and any(
+        x.requires_grad for x in (orig, dirn, *scene.params().leaves()))
+
+    def step(st, b):
+        return bounce_step(scene, accel, face_table, st, b, key, remat)
 
     start = 0
     if bounce_limit > 0:
-        st = bounce_step(scene, accel, st, 0, key)
+        st = step(st, 0)
         start = 1
     restore = None
     if sort_rays and bounce_limit > start + 1:
         # the first diffuse bounce runs at full width, then compact once
-        st = bounce_step(scene, accel, st, start, key)
+        st = step(st, start)
         start += 1
         st, restore = compact_state(scene, st, lane_pack)
     for b in range(start, bounce_limit):
-        st = bounce_step(scene, accel, st, b, key)
+        st = step(st, b)
 
     cr, cg, cb = st.cr, st.cg, st.cb
     if restore is not None:
@@ -507,25 +786,27 @@ def _trace_chunked(scene, orig, dirn, ray_ids, settings: RenderSettings, key, ac
     return torch.cat(colors)[:n], rays_cast
 
 
-@torch.no_grad()
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    """Clamp to [0, 1] with ``jnp.clip``'s gradient: at an exact bound each
+    side of the min/max gets half (``torch.clamp`` would pass all of it),
+    so black pixels at exactly 0 still carry half their emission gradient."""
+    return torch.minimum(torch.maximum(x, torch.zeros_like(x)), torch.ones_like(x))
+
+
 def render(scene: Scene, camera: Camera, settings: RenderSettings, key,
-           accel: Optional[ShadedWideBVH] = None, return_stats: bool = False):
-    """Full forward render -> linear-RGB film (H, W, 3) in [0, 1] on the
-    scene's device. ``key`` is a uint32[2] key (``rng.prng_key(seed)``);
-    it splits into an anti-aliasing key and the bounce key, as in the
-    reference. Scene and accel must be on one device (``.to(device)``); a
-    CPU device runs the plain versions of the kernels, a CUDA device the
-    kernels."""
+           accel=None, return_stats: bool = False, device=None):
+    """Full render -> linear-RGB film (H, W, 3) in [0, 1] on ``device``
+    (None: "cuda"; "cpu" runs the plain versions of the kernels). A host
+    scene or accel is moved there. ``key`` is a uint32[2] key
+    (``rng.prng_key(seed)``); it splits into an anti-aliasing key and the
+    bounce key, as in the reference. Differentiable with respect to the
+    scene's float leaves (``Scene.with_params``); the film clamp is
+    ``clip01``."""
     _refuse(nee=settings.nee, pair_bounces=settings.pair_bounces,
             anti_aliasing=settings.anti_aliasing)
-    if not isinstance(scene.materials.emission, torch.Tensor):
-        scene = scene.to("cpu")
-    dev = scene.device
-    if accel is not None:
-        if not isinstance(accel.cboxes, torch.Tensor) and dev.type == "cpu":
-            accel = accel.to(dev)
-        if accel.device != dev:
-            raise ValueError(f"accel is on {accel.device}, scene on {dev}")
+    dev = resolve_device(device)
+    scene = scene.to(dev)
+    accel = _accel_on(accel, dev)
     w, h = settings.resolution
     spp = settings.samples_per_pixel
     _aa_key, bounce_key = split(np.asarray(key, np.uint32))
@@ -536,7 +817,8 @@ def render(scene: Scene, camera: Camera, settings: RenderSettings, key,
     color, rays_cast = _trace_chunked(scene, orig, dirn, ray_ids, settings,
                                       bounce_key, accel)
     color = from_tile_order(color, w, h, spp)
-    film = color.reshape(spp, h, w, 3).mean(dim=0).clamp(0.0, 1.0)
+    film = color.reshape(spp, h, w, 3).mean(dim=0)
+    film = clip01(film)
     if return_stats:
         return film, {"rays_cast": rays_cast}
     return film

@@ -16,6 +16,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from atray_tpu_torch.device import resolve_device
+
 
 def _f32(x):
     return np.asarray(x, np.float32)
@@ -42,9 +44,11 @@ def _leaf_to(x, device):
 
 class _Leaves:
     """``.to(device)`` for a dataclass whose fields are array leaves or
-    nested ``_Leaves``; non-array fields (ints) are kept as they are."""
+    nested ``_Leaves``; non-array fields (ints) are kept as they are.
+    ``device=None`` means ``"cuda"`` (``device.resolve_device``)."""
 
-    def to(self, device):
+    def to(self, device=None):
+        device = resolve_device(device)
         kw = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
@@ -131,6 +135,40 @@ class Scene(_Leaves):
         """Device of the scene's leaves (the CPU while they are numpy)."""
         em = self.materials.emission
         return em.device if isinstance(em, torch.Tensor) else torch.device("cpu")
+
+    def params(self) -> "SceneParams":
+        """The differentiable leaves."""
+        return SceneParams(
+            vertices=self.mesh.vertices,
+            normals=self.mesh.normals,
+            emission=self.materials.emission,
+            albedo=self.materials.albedo,
+            scatter=self.materials.scatter,
+        )
+
+    def with_params(self, p: "SceneParams") -> "Scene":
+        """The scene with ``p``'s leaves in place of its own."""
+        return dataclasses.replace(
+            self,
+            mesh=dataclasses.replace(self.mesh, vertices=p.vertices, normals=p.normals),
+            materials=Materials(emission=p.emission, albedo=p.albedo, scatter=p.scatter),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneParams(_Leaves):
+    """The leaves the inverse renderer optimizes; tensors that may require
+    grad (``atray_tpu/scene/data.py``'s pytree of the same name)."""
+
+    vertices: torch.Tensor   # (V, 3)
+    normals: torch.Tensor    # (N, 3)
+    emission: torch.Tensor   # (M, 3)
+    albedo: torch.Tensor     # (M, 3)
+    scatter: torch.Tensor    # (M,)
+
+    def leaves(self) -> Tuple[torch.Tensor, ...]:
+        """The five leaves in field order (the reference's tree order)."""
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self))
 
 
 def make_materials(rows: Sequence[Tuple]) -> Materials:

@@ -1,6 +1,8 @@
-"""PyTorch port: the lane take (``kernels/lane_pack.py``) against the JAX
-Pallas take (interpret mode) and numpy, and the state pack's exactness."""
+"""PyTorch port: the lane take and scatter (``kernels/lane_pack.py``)
+against the JAX Pallas kernels (interpret mode) and numpy, their autograd
+pair against ``jax.vjp``, and the state pack's exactness."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,13 +10,20 @@ import torch
 
 torch.set_num_threads(2)
 
+from atray_tpu.kernels.lane_pack import lane_scatter as jax_lane_scatter  # noqa: E402
+from atray_tpu.kernels.lane_pack import lane_scatter_p as jax_lane_scatter_p  # noqa: E402
 from atray_tpu.kernels.lane_pack import lane_take as jax_lane_take  # noqa: E402
+from atray_tpu.kernels.lane_pack import lane_take_p as jax_lane_take_p  # noqa: E402
 from atray_tpu.kernels.lane_pack import pack_indices as jax_pack_indices  # noqa: E402
 from atray_tpu.kernels.lane_pack import unpack_indices as jax_unpack_indices  # noqa: E402
 
 from atray_tpu_torch.kernels import _build  # noqa: E402
 from atray_tpu_torch.kernels.lane_pack import (  # noqa: E402
+    lane_scatter,
+    lane_scatter_p,
+    lane_scatter_ref,
     lane_take,
+    lane_take_p,
     lane_take_ref,
     pack_indices,
     unpack_indices,
@@ -118,6 +127,107 @@ def test_lane_pack_gid_exact_beyond_f32_int_range():
     live_pos = torch.cumsum(alive.to(torch.int64), 0) - 1
     np.testing.assert_array_equal(back[alive].numpy(), live_pos[alive].numpy().astype(np.float32))
     assert torch.all(back[~alive] == 0)
+
+
+def _scatter_maps(rng, n):
+    alive = rng.random(n) < 0.45
+    alive[:300] = False
+    pidx = np.array(jax_pack_indices(jnp.asarray(alive)))
+    uidx = np.array(jax_unpack_indices(jnp.asarray(alive)))
+    dup = (np.arange(n) // 2).astype(np.int32)     # every target hit twice
+    dup[rng.random(n) < 0.05] = -1
+    return {"pack": pidx, "unpack": uidx, "duplicates": dup}
+
+
+@pytest.mark.parametrize("c", [3, 12])
+def test_lane_scatter_matches_jax_lane_scatter(rng, c):
+    rows = 64
+    n = rows * LANE
+    cols = rng.normal(size=(c, rows, LANE)).astype(np.float32)
+    for name, dst in _scatter_maps(rng, n).items():
+        ref = np.asarray(jax_lane_scatter(jnp.asarray(cols), jnp.asarray(dst), wcap=64,
+                                          interpret=True)).reshape(c, n)
+        got = lane_scatter(torch.from_numpy(cols.reshape(c, n)), torch.from_numpy(dst)).numpy()
+        if name == "duplicates":
+            # two addends in another order may round differently
+            np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(got, ref)
+        want = np.zeros((c, n), np.float32)
+        ok = dst >= 0
+        np.add.at(want.T, dst[ok], cols.reshape(c, n).T[ok])
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_lane_scatter_any_map_and_edges(rng):
+    # no band and no monotonicity: a random many-to-one map sums in input
+    # order; out-of-range targets drop, untargeted lanes stay 0
+    c, n = 2, 5000
+    cols = rng.normal(size=(c, n)).astype(np.float32)
+    dst = rng.integers(-1, n // 3, n).astype(np.int32)
+    dst[:4] = [n, n + 7, -5, 0]
+    want = np.zeros((c, n), np.float32)
+    ok = (dst >= 0) & (dst < n)
+    for i in np.nonzero(ok)[0]:
+        want[:, dst[i]] += cols[:, i]
+    got = lane_scatter_ref(torch.from_numpy(cols), torch.from_numpy(dst)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.all(got[:, n // 3:] == 0)
+    empty = lane_scatter_ref(torch.from_numpy(cols), torch.full((n,), -1, dtype=torch.int32))
+    assert not empty.any()
+
+
+@pytest.mark.parametrize("direction", ["take", "scatter"])
+def test_lane_autograd_pair_matches_jax_vjp(rng, direction):
+    # each direction's backward is the other kernel with the same index
+    rows, c = 64, 3
+    n = rows * LANE
+    cols = rng.normal(size=(c, rows, LANE)).astype(np.float32)
+    ct = rng.normal(size=(c, rows, LANE)).astype(np.float32)
+    maps = _scatter_maps(rng, n)
+    for name in ("pack", "unpack"):
+        idx = maps[name]
+        jfn = jax_lane_take_p if direction == "take" else jax_lane_scatter_p
+        tfn = lane_take_p if direction == "take" else lane_scatter_p
+        jy, vjp = jax.vjp(lambda x: jfn(x, jnp.asarray(idx), 64), jnp.asarray(cols))
+        (jg,) = vjp(jnp.asarray(ct))
+        x = torch.from_numpy(cols.reshape(c, n)).requires_grad_()
+        y = tfn(x, torch.from_numpy(idx))
+        (g,) = torch.autograd.grad(y, x, torch.from_numpy(ct.reshape(c, n)))
+        np.testing.assert_array_equal(y.detach().numpy(), np.asarray(jy).reshape(c, n))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(jg).reshape(c, n))
+
+
+def test_lane_scatter_wrapper_checks_inputs(monkeypatch):
+    def no_build():
+        raise AssertionError("the CPU path must not build the CUDA kernels")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    cols = torch.zeros((3, 256))
+    with pytest.raises(TypeError):
+        lane_scatter(cols.to(torch.int32), torch.zeros(256, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        lane_scatter(cols, torch.zeros(256, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        lane_scatter(torch.zeros((256, 3)).t(), torch.zeros(256, dtype=torch.int32))
+    before = _build.COUNTERS["lane_scatter"].plain_calls
+    lane_scatter(cols, torch.zeros(256, dtype=torch.int32))
+    assert _build.COUNTERS["lane_scatter"].plain_calls == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_scatter_kernel_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(7)
+    n = 300_000
+    cols = torch.from_numpy(rng.normal(size=(12, n)).astype(np.float32)).cuda()
+    alive = torch.from_numpy(rng.random(n) < 0.6).cuda()
+    for idx in (pack_indices(alive), unpack_indices(alive)):
+        assert torch.equal(lane_scatter(cols, idx), lane_scatter_ref(cols, idx))
+    dup = torch.from_numpy((np.arange(n) // 3).astype(np.int32)).cuda()
+    assert torch.allclose(lane_scatter(cols, dup), lane_scatter_ref(cols, dup), rtol=1e-6,
+                          atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -97,7 +97,7 @@ def test_fused_render_matches_jax_fused_render():
         scene_from_numpy(_tree(scene)).to("cpu"), cam,
         RenderSettings(resolution=(24, 24), samples_per_pixel=2, bounce_limit=3),
         prng_key(5), accel=shaded_accel_from_numpy(_accel_fields(ja)).to("cpu"),
-        return_stats=True)
+        return_stats=True, device="cpu")
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-5)
     assert int(stats["rays_cast"]) == int(ref_stats["rays_cast"])
     assert float(np.asarray(ref).std()) > 0.05
@@ -116,7 +116,7 @@ def test_sorted_packed_render_matches_jax_brute_force():
     accel = build_shaded_accel(port_scene, KDTreeConfig(leaf_size=8)).to("cpu")
     cam = look_at_camera((0, 0.6, 0.7), (0, 0, -4), h_fov=0.9, aspect=2.0)
     s = RenderSettings(resolution=(128, 64), samples_per_pixel=1, bounce_limit=4)
-    got = tw.render(port_scene.to("cpu"), cam, s, prng_key(0), accel=accel).numpy()
+    got = tw.render(port_scene.to("cpu"), cam, s, prng_key(0), accel=accel, device="cpu").numpy()
     bad = np.abs(got - ref) > 1e-4
     assert bad.mean() <= 0.002, f"{int(bad.sum())} of {bad.size} values differ by > 1e-4"
     assert ref.std() > 0.01
@@ -129,12 +129,12 @@ def test_port_film_bit_identities(variant):
     accel = build_shaded_accel(scene, KDTreeConfig(leaf_size=8)).to("cpu")
     cam = look_at_camera((0, 0.6, 0.7), (0, 0, -4), h_fov=0.9, aspect=2.0)
     base = dict(resolution=(128, 64), samples_per_pixel=1, bounce_limit=4)
-    ref = tw.render(scene, cam, RenderSettings(**base), prng_key(1), accel=accel)
+    ref = tw.render(scene, cam, RenderSettings(**base), prng_key(1), accel=accel, device="cpu")
     if variant == "compaction":
         other = RenderSettings(**base, sort_bounces=False, lane_pack=False)
     else:
         other = RenderSettings(**base, ray_chunk=3000)     # ragged last chunk
-    got = tw.render(scene, cam, other, prng_key(1), accel=accel)
+    got = tw.render(scene, cam, other, prng_key(1), accel=accel, device="cpu")
     assert torch.equal(ref, got)
     assert float(ref.std()) > 0.01
 
@@ -177,7 +177,7 @@ def test_face_table_camera_tiles_and_film_match_jax():
     jcam = jax_look_at_camera((0, 0.4, 0.6), (0, 0, -4), h_fov=0.9, aspect=1.6)
     cam = look_at_camera((0, 0.4, 0.6), (0, 0, -4), h_fov=0.9, aspect=1.6)
     jo, jd = jax_camera_rays(jcam, 40, 25, 2)
-    o, d = camera_rays(cam, 40, 25, 2)
+    o, d = camera_rays(cam, 40, 25, 2, device="cpu")
     np.testing.assert_array_equal(o.numpy(), np.asarray(jo))
     np.testing.assert_allclose(d.numpy(), np.asarray(jd), atol=1e-6)
     x = np.arange(2 * 25 * 40 * 3, dtype=np.float32).reshape(-1, 3)
@@ -199,9 +199,9 @@ def test_unported_options_raise():
     for opt in ("nee", "anti_aliasing", "pair_bounces"):
         s = RenderSettings(resolution=(16, 8), samples_per_pixel=1, **{opt: True})
         with pytest.raises(NotImplementedError, match=opt):
-            tw.render(scene, cam, s, prng_key(0), accel=accel)
+            tw.render(scene, cam, s, prng_key(0), accel=accel, device="cpu")
     with pytest.raises(NotImplementedError, match="accel=None"):
-        tw.render(scene, cam, RenderSettings(resolution=(16, 8)), prng_key(0))
+        tw.render(scene, cam, RenderSettings(resolution=(16, 8)), prng_key(0), device="cpu")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -218,4 +218,5 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    # the package's 28 modules, dist.train and kernels.wide_exact among them
+    assert int(out.stdout.strip()) >= 28

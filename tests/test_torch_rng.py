@@ -1,5 +1,5 @@
-"""PyTorch port: threefry key split and the per-ray murmur uniforms are
-bit-equal to the JAX package's."""
+"""PyTorch port: threefry key split, fold_in and the per-ray murmur
+uniforms are bit-equal to the JAX package's."""
 
 import jax
 import jax.numpy as jnp
@@ -11,7 +11,13 @@ torch.set_num_threads(2)
 
 from atray_tpu.render.wavefront import ray_uniforms  # noqa: E402
 
-from atray_tpu_torch.render.rng import mix32, prng_key, ray_uniform_cols, split  # noqa: E402
+from atray_tpu_torch.render.rng import (  # noqa: E402
+    fold_in,
+    mix32,
+    prng_key,
+    ray_uniform_cols,
+    split,
+)
 
 SEEDS = [0, 1, 7, 2 ** 31 + 5]
 
@@ -23,6 +29,18 @@ def test_key_and_split_match_jax(seed):
     for num in (2, 3):
         np.testing.assert_array_equal(split(prng_key(seed), num),
                                       np.asarray(jax.random.split(ref, num)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_matches_jax(seed):
+    # the trainer's per-step keys: fold_in(PRNGKey(seed), step)
+    ref = jax.random.PRNGKey(seed)
+    for data in (0, 1, 5, 999, 2 ** 31 + 7, 2 ** 32 - 1):
+        np.testing.assert_array_equal(fold_in(prng_key(seed), data),
+                                      np.asarray(jax.random.fold_in(ref, data)))
+    sub = jax.random.split(ref)[1]
+    np.testing.assert_array_equal(fold_in(np.asarray(sub), 3),
+                                  np.asarray(jax.random.fold_in(sub, 3)))
 
 
 def test_mix32_matches_uint32_numpy():
