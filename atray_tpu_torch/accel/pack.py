@@ -5,55 +5,29 @@ Leaf triangles go into rows of 128 floats, 8 records of stride 16 per row:
 ``[p0.xyz, e1.xyz, e2.xyz, face id as int32 BITS, pad x6]``. A leaf of
 ``leaf_size`` slots takes ``max(1, leaf_size // 8)`` rows. Pad slots have
 p0 = 1e30 and zero edges, so they never hit. The unshaded ``WideBVH``
-(``accel/wide.py``) reuses these rows verbatim. ``nodebox`` and ``ctrl``
-are the skip-link tables of the reference's packet kernels, kept so the
-pack stays array-equal to the reference's.
+(``accel/wide.py``) reuses these rows verbatim. The reference's pack also
+holds the skip-link node tables of its ``TreePack`` walks; they come with
+the port of those walks.
 """
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 
 from atray_tpu_torch.accel.bvh import BVH
-from atray_tpu_torch.scene.data import _Leaves
 
 LANE = 128
 TRI_STRIDE = 16                   # floats per leaf record
 TRIS_PER_ROW = LANE // TRI_STRIDE  # 8
 
 
-@dataclasses.dataclass(frozen=True)
-class TreePack(_Leaves):
-    """Binary BVH repacked: node boxes, skip links and stride-16 leaf rows."""
-
-    nodebox: np.ndarray   # f32 (6, K): min x, y, z, max x, y, z
-    ctrl: np.ndarray      # i32 (2, K): miss link, leaf row or -1
-    tris: np.ndarray      # f32 (rows_per_leaf * num_leaves, 128)
-    leaf_size: int
-    num_nodes: int
-
-    @property
-    def rows_per_leaf(self) -> int:
-        return max(1, self.leaf_size // TRIS_PER_ROW)
-
-
-def pack_bvh(bvh: BVH) -> TreePack:
-    """Repack a flattened BVH; ``leaf_size`` must be <= 8 or a multiple of 8."""
+def pack_bvh(bvh: BVH) -> np.ndarray:
+    """The leaf rows (rows_per_leaf * num_leaves, 128) f32 of a flattened
+    BVH; ``leaf_size`` must be <= 8 or a multiple of 8."""
     ls = bvh.leaf_size
     if ls > TRIS_PER_ROW and ls % TRIS_PER_ROW != 0:
         raise ValueError(f"leaf_size {ls} must be <=8 or a multiple of 8")
-    k = int(bvh.node_min.shape[0])
-    nmin = np.asarray(bvh.node_min)
-    nmax = np.asarray(bvh.node_max)
-    nodebox = np.concatenate([nmin.T, nmax.T], axis=0).astype(np.float32)
-
     rows_per_leaf = max(1, ls // TRIS_PER_ROW)
-    leaf_start = np.asarray(bvh.leaf_start)
-    leaf_row = np.where(leaf_start >= 0, (leaf_start // ls) * rows_per_leaf, -1).astype(np.int32)
-    ctrl = np.stack([np.asarray(bvh.node_miss), leaf_row], axis=0).astype(np.int32)
-
     tid = np.asarray(bvh.tri_orig_id)
     slots = tid.shape[0]
     num_leaves = max(1, slots // ls)
@@ -68,4 +42,4 @@ def pack_bvh(bvh: BVH) -> TreePack:
     flat[rec, 3:6] = np.asarray(bvh.tri_e1)
     flat[rec, 6:9] = np.asarray(bvh.tri_e2)
     flat[rec, 9] = tid.view(np.float32)       # int32 bits
-    return TreePack(nodebox=nodebox, ctrl=ctrl, tris=tris, leaf_size=ls, num_nodes=k)
+    return tris

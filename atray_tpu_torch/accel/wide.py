@@ -141,9 +141,7 @@ def _collapse_wide_np(bvh: BVH):
 
 @dataclasses.dataclass(frozen=True)
 class WideBVH(_Leaves):
-    """Tables of the unshaded 8-wide walk. ``variant`` ("exact" or
-    "exact2") names the reference kernel that would walk it; one kernel
-    serves both here, so it selects nothing. ``slot_face`` and
+    """Tables of the unshaded 8-wide walk. ``slot_face`` and
     ``build_vertices`` carry what ``refit_wide`` needs."""
 
     cboxes: np.ndarray   # f32 (W, 128): child c, field f at lane 8f + c
@@ -152,7 +150,6 @@ class WideBVH(_Leaves):
     leaf_size: int
     num_nodes: int
     max_depth: int
-    variant: str = "exact"
     caxis: Optional[np.ndarray] = None            # i32 (1, W)
     slot_face: Optional[np.ndarray] = None        # i32 (slots,); -1 = pad
     build_vertices: Optional[np.ndarray] = None   # f32 (V, 3)
@@ -179,7 +176,7 @@ def wide_from_mesh(vertices, faces, config: Optional[KDTreeConfig] = None) -> Wi
     """Binary SAH build -> leaf pack -> 8-wide collapse, with refit data."""
     cfg = config or KDTreeConfig(leaf_size=8)
     bvh = build_bvh(vertices, faces, cfg)
-    wide = build_wide_bvh(bvh, pack_bvh(bvh).tris)
+    wide = build_wide_bvh(bvh, pack_bvh(bvh))
     return dataclasses.replace(
         wide, slot_face=np.asarray(bvh.tri_orig_id, np.int32),
         build_vertices=np.asarray(vertices, np.float32))

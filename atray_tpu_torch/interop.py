@@ -50,8 +50,7 @@ _ACCEL_INTS = ("leaf_size", "num_nodes", "max_depth", "num_treelets", "leaves_pe
 
 
 def _accel_kw(fields: Mapping[str, Any]) -> dict:
-    return {k: (int(v) if k in _ACCEL_INTS else v if isinstance(v, str)
-                else None if v is None else np.asarray(v))
+    return {k: (int(v) if k in _ACCEL_INTS else None if v is None else np.asarray(v))
             for k, v in fields.items()}
 
 
@@ -63,8 +62,10 @@ def shaded_accel_from_numpy(fields: Mapping[str, Any]) -> ShadedWideBVH:
 
 def wide_accel_from_numpy(fields: Mapping[str, Any]) -> WideBVH:
     """``fields`` holds the ``WideBVH`` field names: table arrays (cboxes,
-    clinks, tris, caxis, slot_face, build_vertices), ints and ``variant``."""
-    return WideBVH(**_accel_kw(fields))
+    clinks, tris, caxis, slot_face, build_vertices) and ints. The
+    reference's ``variant``, which picks one of its two walk kernels, is
+    dropped: one kernel serves both here."""
+    return WideBVH(**_accel_kw({k: v for k, v in fields.items() if k != "variant"}))
 
 
 def params_from_numpy(fields: Mapping[str, Any], device=None) -> SceneParams:

@@ -107,25 +107,16 @@ def _compile(lib_path: str) -> None:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         cu = [s for s in _sources() if s.endswith(".cu")]
         objs = [os.path.join(tmp, os.path.basename(src) + ".o") for src in cu]
-        procs = []
-        try:
-            for src, obj in zip(cu, objs):
-                procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
-                                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                              text=True))
-            errors = []
-            for src, proc in zip(cu, procs):
-                _, err = proc.communicate(timeout=900)
-                _loaded.log += "".join(ln + "\n" for ln in err.splitlines() if "ptxas info" in ln)
-                if proc.returncode != 0:
-                    errors.append(f"{os.path.basename(src)} (exit {proc.returncode}):\n{err}")
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.communicate()
-        if errors:
-            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(cu, objs)]
+        errs = [proc.communicate()[1] for proc in procs]      # waits for every one
+        _loaded.log += "".join(ln + "\n" for err in errs for ln in err.splitlines()
+                               if "ptxas info" in ln)
+        failed = [f"{os.path.basename(src)} (exit {proc.returncode}):\n{err}"
+                  for src, proc, err in zip(cu, procs, errs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         so = os.path.join(tmp, "lib.so")
         proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", so, *objs],
                               capture_output=True, text=True, timeout=900)

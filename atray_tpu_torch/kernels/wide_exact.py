@@ -7,7 +7,7 @@ int32 face id of the nearest hit, ``(INF, 0, 0, -1)`` on a miss. The
 reference has two kernels for it, ``wide_exact`` for primaries and the
 two-block interleaved ``wide_exact2`` for bounces; they differ only in how
 they hide TPU syncs, so ``wide_exact2_first_hit`` is the same function
-here and ``WideBVH.variant`` selects nothing.
+here and ``WideBVH`` carries no variant field.
 
 On a CUDA tensor the wrapper launches ``csrc/wide_exact.cu`` (one thread
 per ray, its own stack); on a CPU tensor it runs ``wide_exact_ref``, the

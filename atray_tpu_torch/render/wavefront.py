@@ -22,7 +22,7 @@ Two hit paths, chosen by the accel:
 Gradients follow the detached-visibility convention: which primitive a ray
 hits carries no derivative; t, barycentrics, normals and material
 constants do, down to vertices, vertex normals, emission, albedo and
-scatter. With ``remat`` (the default) each bounce's shading runs under
+scatter. When autograd records the trace, each bounce's shading runs under
 ``torch.utils.checkpoint`` with the hit call outside it: the backward
 recomputes the cheap elementwise shading and reuses the saved hit.
 
@@ -476,7 +476,7 @@ def _shade_bounce(scene, face_table, shade_hit, key, b, ox, oy, oz, dx, dy, dz,
                   wr, wg, wb, cr, cg, cb, alive, gid, *hit):
     """Everything of a bounce after the hit query: hit planes from the
     saved hit, shading, respawn. Pure elementwise work, recomputed in the
-    backward under ``remat``."""
+    backward when checkpointed."""
     u0, u1, u2 = ray_uniform_cols(key, gid, b, 3)
     (t, nx, ny, nz, hit_m, emr, emg, emb, alr, alg, alb,
      scat) = shade_hit(scene, face_table, ox, oy, oz, dx, dy, dz, *hit)
@@ -518,10 +518,24 @@ def _shade_bounce(scene, face_table, shade_hit, key, b, ox, oy, oz, dx, dy, dz,
             wr, wg, wb, cr, cg, cb, alive)
 
 
-def bounce_step(scene: Scene, accel, face_table, st: WaveState, b: int, key,
-                remat: bool = True) -> WaveState:
+def _records(scene: Scene, *xs: torch.Tensor) -> bool:
+    """Whether autograd records work on ``xs`` and the scene's float leaves."""
+    return torch.is_grad_enabled() and any(
+        x.requires_grad for x in (*xs, *scene.params().leaves()))
+
+
+def _face_table_for(scene: Scene, accel, record: bool) -> Optional[torch.Tensor]:
+    """The face table where a pass reads it: the gather path's
+    ``resolve_hit`` always, the fused hit's backward replay only when
+    autograd records."""
+    if record or isinstance(accel, WideBVH):
+        return build_face_table(scene)
+    return None
+
+
+def bounce_step(scene: Scene, accel, face_table, st: WaveState, b: int, key) -> WaveState:
     """One wavefront bounce over flat (R,) planes: the hit query, then
-    ``_shade_bounce``, checkpointed with ``remat``."""
+    ``_shade_bounce``, checkpointed when autograd records it."""
     ox, oy, oz, dx, dy, dz = st.ox, st.oy, st.oz, st.dx, st.dy, st.dz
     # rays cast = live paths entering the bounce
     rc = st.rc + st.alive.sum()
@@ -537,7 +551,7 @@ def bounce_step(scene: Scene, accel, face_table, st: WaveState, b: int, key,
         return _shade_bounce(scene, face_table, shade_hit, key, b, *planes)
 
     args = (*st[:14], *hit)
-    if remat:
+    if _records(scene, *st[:12]):
         out = checkpoint(shade, *args, use_reentrant=False)
     else:
         out = shade(*args)
@@ -669,8 +683,7 @@ def trace_radiance(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
                    sort_rays: bool = False, nee: bool = False,
                    return_stats: bool = False,
                    ray_ids: Optional[torch.Tensor] = None,
-                   lane_pack: bool = True, pair_bounces: bool = False,
-                   remat: bool = True):
+                   lane_pack: bool = True, pair_bounces: bool = False):
     """Path-trace each ray to its radiance (R, 3) on the rays' device (the
     scene and a host accel are moved there). ``accel`` is a
     ``ShadedWideBVH`` (fused hit) or a ``WideBVH`` (gather path). ``key``
@@ -685,9 +698,22 @@ def trace_radiance(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
     dev = orig.device
     scene = scene.to(dev)
     accel = _accel_on(accel, dev)
-    r = orig.shape[0]
     if ray_ids is None:
-        ray_ids = torch.arange(r, dtype=torch.int32, device=dev)
+        ray_ids = torch.arange(orig.shape[0], dtype=torch.int32, device=dev)
+    face_table = _face_table_for(scene, accel, _records(scene, orig, dirn))
+    color, rays_cast = _trace(scene, accel, face_table, orig, dirn, ray_ids,
+                              bounce_limit, key, sort_rays, lane_pack)
+    if return_stats:
+        return color, {"rays_cast": rays_cast}
+    return color
+
+
+def _trace(scene, accel, face_table, orig, dirn, ray_ids, bounce_limit, key,
+           sort_rays, lane_pack):
+    """The bounce loop of ``trace_radiance`` on a scene and accel already on
+    the rays' device: (color (R, 3), rays_cast)."""
+    dev = orig.device
+    r = orig.shape[0]
     ones = torch.ones(r, dtype=torch.float32, device=dev)
     zeros = torch.zeros(r, dtype=torch.float32, device=dev)
     st = WaveState(
@@ -697,13 +723,9 @@ def trace_radiance(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
         torch.ones(r, dtype=torch.bool, device=dev), ray_ids.to(torch.int32),
         torch.zeros((), dtype=torch.int64, device=dev),
     )
-    face_table = build_face_table(scene)
-    # checkpoint only where autograd records something to replay
-    remat = remat and torch.is_grad_enabled() and any(
-        x.requires_grad for x in (orig, dirn, *scene.params().leaves()))
 
     def step(st, b):
-        return bounce_step(scene, accel, face_table, st, b, key, remat)
+        return bounce_step(scene, accel, face_table, st, b, key)
 
     start = 0
     if bounce_limit > 0:
@@ -721,10 +743,7 @@ def trace_radiance(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
     cr, cg, cb = st.cr, st.cg, st.cb
     if restore is not None:
         cr, cg, cb = restore(cr, cg, cb)
-    color = torch.stack([cr, cg, cb], dim=1)
-    if return_stats:
-        return color, {"rays_cast": st.rc}
-    return color
+    return torch.stack([cr, cg, cb], dim=1), st.rc
 
 
 def _largest_divisor_leq(n: int, cap: int) -> int:
@@ -758,16 +777,15 @@ def from_tile_order(x: torch.Tensor, w: int, h: int, spp: int) -> torch.Tensor:
 
 def _trace_chunked(scene, orig, dirn, ray_ids, settings: RenderSettings, key, accel):
     """Trace a flat ray set in chunks of ``settings.ray_chunk`` (a Python
-    loop; the last chunk is padded with parked rays). Returns (color (N, 3),
-    rays_cast)."""
+    loop; the last chunk is padded with parked rays), on a scene and accel
+    already on the rays' device. The face table is built once for all
+    chunks. Returns (color (N, 3), rays_cast)."""
     n = orig.shape[0]
     chunk = settings.ray_chunk
-    kw = dict(accel=accel, sort_rays=settings.sort_bounces, return_stats=True,
-              lane_pack=settings.lane_pack)
+    face_table = _face_table_for(scene, accel, _records(scene, orig, dirn))
+    bounce_args = (settings.bounce_limit, key, settings.sort_bounces, settings.lane_pack)
     if not chunk or chunk >= n:
-        color, stats = trace_radiance(scene, orig, dirn, settings.bounce_limit, key,
-                                      ray_ids=ray_ids, **kw)
-        return color, stats["rays_cast"]
+        return _trace(scene, accel, face_table, orig, dirn, ray_ids, *bounce_args)
     pad = (-n) % chunk
     if pad:
         dev = orig.device
@@ -778,11 +796,10 @@ def _trace_chunked(scene, orig, dirn, ray_ids, settings: RenderSettings, key, ac
             pad, dtype=ray_ids.dtype, device=dev)])
     colors, rays_cast = [], 0
     for s in range(0, orig.shape[0], chunk):
-        color, stats = trace_radiance(scene, orig[s:s + chunk], dirn[s:s + chunk],
-                                      settings.bounce_limit, key,
-                                      ray_ids=ray_ids[s:s + chunk], **kw)
+        color, rc = _trace(scene, accel, face_table, orig[s:s + chunk], dirn[s:s + chunk],
+                           ray_ids[s:s + chunk], *bounce_args)
         colors.append(color)
-        rays_cast = rays_cast + stats["rays_cast"]
+        rays_cast = rays_cast + rc
     return torch.cat(colors)[:n], rays_cast
 
 
@@ -804,6 +821,8 @@ def render(scene: Scene, camera: Camera, settings: RenderSettings, key,
     ``clip01``."""
     _refuse(nee=settings.nee, pair_bounces=settings.pair_bounces,
             anti_aliasing=settings.anti_aliasing)
+    if scene.texture is not None:
+        raise NotImplementedError("textured scenes are not ported yet")
     dev = resolve_device(device)
     scene = scene.to(dev)
     accel = _accel_on(accel, dev)

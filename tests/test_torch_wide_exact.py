@@ -66,14 +66,13 @@ def test_pack_and_make_accel_tables_bit_equal(name, args):
             a, b = np.asarray(getattr(ref, f)), getattr(got, f)
             assert a.shape == b.shape and a.dtype == b.dtype, f
             np.testing.assert_array_equal(_bits(a), _bits(b), err_msg=f)
-        for f in ("leaf_size", "num_nodes", "max_depth", "variant"):
+        for f in ("leaf_size", "num_nodes", "max_depth"):
             assert getattr(ref, f) == getattr(got, f), f
     cfg = dict(leaf_size=8)
     jp = jax_pack_bvh(jax_build_bvh(ref_mesh.vertices, ref_mesh.faces, JaxKDTreeConfig(**cfg)))
     tp = pack_bvh(build_bvh(mesh.vertices, mesh.faces, KDTreeConfig(**cfg)))
-    for f in ("nodebox", "ctrl", "tris"):
-        np.testing.assert_array_equal(_bits(getattr(jp, f)), _bits(getattr(tp, f)), err_msg=f)
-    assert (jp.leaf_size, jp.num_nodes) == (tp.leaf_size, tp.num_nodes)
+    assert tp.dtype == np.float32
+    np.testing.assert_array_equal(_bits(jp.tris), _bits(tp))
 
 
 def _random_rays(rng, n):
