@@ -6,7 +6,8 @@ to ``node + 1``, a miss or a finished leaf jumps to ``node_miss[node]``
 degenerate triangles at 1e30 that never hit; ``tri_orig_id`` maps slots
 back to face indices (-1 = pad). Same mesh, same tree: the numpy build and
 the native build (``native/``) each reproduce the reference's tables for
-the same backend.
+the same backend. ``BVH.to(device)`` uploads the arrays (the skip-link walk
+of ``accel/traverse.py`` reads them as tensors).
 """
 
 from __future__ import annotations
@@ -18,12 +19,13 @@ from typing import Optional, Tuple
 import numpy as np
 
 from atray_tpu_torch.config import KDTreeConfig
+from atray_tpu_torch.scene.data import _Leaves
 
 _FAR = 1.0e30
 
 
 @dataclasses.dataclass(frozen=True)
-class BVH:
+class BVH(_Leaves):
     """Flattened skip-link BVH: K nodes, L = num_leaves * leaf_size slots."""
 
     node_min: np.ndarray     # (K, 3) f32

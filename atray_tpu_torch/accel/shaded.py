@@ -40,9 +40,9 @@ class ShadedWideBVH(_Leaves):
     """Wide-BVH tables with shaded stride-32 leaf records.
 
     ``tboxes`` (ceil(T/8), 128) packs 8 treelet AABBs per row in the
-    ``cboxes`` field layout, NaN for pad treelets; only the pair-binned
-    traversal reads it (not ported yet), but it is built so the tables stay
-    array-equal to the reference's.
+    ``cboxes`` field layout, NaN for empty treelets and row pads; a treelet
+    is ``leaves_per_treelet`` consecutive leaves of ``tris``. The pair-binned
+    traversal (``kernels/treelet_pairs.py``, ``pair_bounces``) reads them.
     """
 
     cboxes: np.ndarray   # f32 (W, 128)

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from atray_tpu_torch.accel.bvh import BVH, build_bvh
-from atray_tpu_torch.accel.pack import TRIS_PER_ROW, pack_bvh
+from atray_tpu_torch.accel.pack import TRIS_PER_ROW, TreePack, pack_bvh
 from atray_tpu_torch.config import KDTreeConfig
 from atray_tpu_torch.scene.data import _Leaves
 
@@ -176,10 +176,33 @@ def wide_from_mesh(vertices, faces, config: Optional[KDTreeConfig] = None) -> Wi
     """Binary SAH build -> leaf pack -> 8-wide collapse, with refit data."""
     cfg = config or KDTreeConfig(leaf_size=8)
     bvh = build_bvh(vertices, faces, cfg)
-    wide = build_wide_bvh(bvh, pack_bvh(bvh))
+    wide = build_wide_bvh(bvh, pack_bvh(bvh).tris)
     return dataclasses.replace(
         wide, slot_face=np.asarray(bvh.tri_orig_id, np.int32),
         build_vertices=np.asarray(vertices, np.float32))
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridAccel(_Leaves):
+    """Coherence-split accel: ``render`` walks ``wide`` (``wide_exact``)
+    for the camera rays and ``pack`` (``persistent_packet``, exact per-ray
+    culling over skip links) for the bounce rays. Both are views of one
+    binary BVH, so they hold the same leaf rows and find the same hits."""
+
+    wide: WideBVH
+    pack: TreePack
+
+    @property
+    def device(self) -> torch.device:
+        return self.wide.device
+
+
+def hybrid_from_mesh(vertices, faces, config: Optional[KDTreeConfig] = None) -> HybridAccel:
+    """Binary SAH build -> one ``TreePack`` and the ``WideBVH`` over its
+    leaf rows. Host numpy; ``.to(device)`` uploads both."""
+    bvh = build_bvh(vertices, faces, config or KDTreeConfig(leaf_size=8))
+    pack = pack_bvh(bvh)
+    return HybridAccel(wide=build_wide_bvh(bvh, pack.tris), pack=pack)
 
 
 def make_accel(vertices, faces, config: Optional[KDTreeConfig] = None) -> WideBVH:

@@ -29,7 +29,10 @@ class RenderSettings:
     nee: next-event estimation (not ported yet: raises).
     lane_pack: on top of sort_bounces, pack live rays to a dense prefix with
         the lane-take kernel. Film-identical.
-    pair_bounces: pair-binned bounce traversal (not ported yet: raises).
+    pair_bounces: with a ``ShadedWideBVH`` that has a treelet view, the
+        bounces after the camera bounce take the pair-binned traversal
+        (``kernels/treelet_pairs.py``). Film-identical; other accels ignore
+        it.
     """
 
     resolution: Tuple[int, int] = (1280, 720)

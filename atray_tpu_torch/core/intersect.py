@@ -5,7 +5,9 @@ The miss sentinel, the minimum hit distance, ``dot``, ``cross`` and
 ``normalize`` with the reference's op order
 (``v * reciprocal(sqrt(max(v.v, eps)))``); ``moller_trumbore``,
 ``sphere_hits`` and ``plane_hits``, the forms ``render.wavefront``'s
-``nearest_hit_ids`` and ``resolve_hit`` use. A miss is ``t = INF``.
+``nearest_hit_ids`` and ``resolve_hit`` use; ``safe_inv_dir`` and the slab
+test ``aabb_entry_t`` of the skip-link walk (``accel/traverse.py``). A miss
+is ``t = INF``.
 """
 
 from __future__ import annotations
@@ -46,6 +48,24 @@ def moller_trumbore(orig, dirn, p0, e1, e2, backface_cull: bool = True):
     t = dot(e2, qvec) * inv_det
     hit = valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > T_MIN)
     return torch.where(hit, t, INF), u, v, hit
+
+
+def safe_inv_dir(dirn: torch.Tensor) -> torch.Tensor:
+    """1/dir with +-INF for zero components (the slab test stays right for
+    finite origins)."""
+    zero = dirn == 0.0
+    return torch.where(zero, torch.copysign(torch.full_like(dirn, INF), dirn),
+                       1.0 / torch.where(zero, 1.0, dirn))
+
+
+def aabb_entry_t(orig, inv_dir, box_min, box_max):
+    """Slab test over broadcast-compatible (..., 3) rows: (t_entry, t_exit,
+    hit), hit where [0, inf) overlaps the box (entry <= exit, exit > 0)."""
+    t0 = (box_min - orig) * inv_dir
+    t1 = (box_max - orig) * inv_dir
+    t_entry = torch.amax(torch.minimum(t0, t1), dim=-1)
+    t_exit = torch.amin(torch.maximum(t0, t1), dim=-1)
+    return t_entry, t_exit, (t_entry <= t_exit) & (t_exit > 0.0)
 
 
 def sphere_hits(orig, dirn, centers, radii):

@@ -15,6 +15,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from atray_tpu_torch.accel.pack import TreePack
 from atray_tpu_torch.accel.shaded import ShadedWideBVH
 from atray_tpu_torch.accel.wide import WideBVH
 from atray_tpu_torch.device import resolve_device
@@ -66,6 +67,12 @@ def wide_accel_from_numpy(fields: Mapping[str, Any]) -> WideBVH:
     reference's ``variant``, which picks one of its two walk kernels, is
     dropped: one kernel serves both here."""
     return WideBVH(**_accel_kw({k: v for k, v in fields.items() if k != "variant"}))
+
+
+def treepack_from_numpy(fields: Mapping[str, Any]) -> TreePack:
+    """``fields`` holds the ``TreePack`` field names: the tables nodebox,
+    ctrl and tris, and the ints leaf_size and num_nodes."""
+    return TreePack(**_accel_kw(fields))
 
 
 def params_from_numpy(fields: Mapping[str, Any], device=None) -> SceneParams:

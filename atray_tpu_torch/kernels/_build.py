@@ -49,6 +49,16 @@ _SIGNATURES = {
         + [_P] * 5
     ),
     "atray_wide_exact_stack_cap": [],
+    "atray_treelet_phase_a": (
+        [_P] * 7 + [ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int] + [_P] * 3
+    ),
+    "atray_treelet_phase_a_max_k": [],
+    "atray_treelet_phase_b": (
+        [_P] * 7 + [ctypes.c_longlong, _P] + [ctypes.c_int] * 3 + [_P] * 7
+    ),
+    "atray_ppacket": (
+        [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 5
+    ),
 }
 
 
@@ -66,7 +76,8 @@ class Counter:
 
 
 COUNTERS: Dict[str, Counter] = {
-    name: Counter() for name in ("wide_shade", "lane_take", "lane_scatter", "wide_exact")
+    name: Counter() for name in ("wide_shade", "lane_take", "lane_scatter", "wide_exact",
+                                 "treelet_phase_a", "treelet_phase_b", "ppacket")
 }
 
 

@@ -25,8 +25,9 @@ import torch
 
 from atray_tpu_torch.accel.pack import TRI_STRIDE, TRIS_PER_ROW
 from atray_tpu_torch.accel.wide import WideBVH
-from atray_tpu_torch.core.intersect import INF, T_MIN
+from atray_tpu_torch.core.intersect import INF
 from atray_tpu_torch.kernels import _build
+from atray_tpu_torch.kernels._plain import inv_dir, record_hit
 
 STACK_CAP = 128     # per-thread stack entries; ATRAY_EXACT_STACK_CAP in the .cu
 COUNTER = _build.COUNTERS["wide_exact"]
@@ -95,11 +96,6 @@ def wide_exact_first_hit(accel: WideBVH, orig: torch.Tensor, dirn: torch.Tensor)
 wide_exact2_first_hit = wide_exact_first_hit
 
 
-def _inv_dir(d):
-    zero = d == 0.0
-    return torch.where(zero, 1.0e30, 1.0 / torch.where(zero, 1.0, d))
-
-
 def wide_exact_ref(accel: WideBVH, orig: torch.Tensor, dirn: torch.Tensor,
                    visits: Optional[dict] = None) -> Hits:
     """Plain PyTorch version of the kernel: a vectorized walk in which every
@@ -115,7 +111,7 @@ def wide_exact_ref(accel: WideBVH, orig: torch.Tensor, dirn: torch.Tensor,
     n = orig.shape[0]
     f32, i32 = torch.float32, torch.int32
     o, d = orig, dirn
-    inv = _inv_dir(d)
+    inv = inv_dir(d)
     best_t = torch.full((n,), INF, dtype=f32, device=dev)
     best_u = torch.zeros((n,), dtype=f32, device=dev)
     best_v = torch.zeros((n,), dtype=f32, device=dev)
@@ -138,27 +134,9 @@ def wide_exact_ref(accel: WideBVH, orig: torch.Tensor, dirn: torch.Tensor,
         counts["records"] += ridx.numel()
         oc = o[rows]
         dc = d[rows]
-        rox, roy, roz = oc[:, 0:1], oc[:, 1:2], oc[:, 2:3]
-        rdx, rdy, rdz = dc[:, 0:1], dc[:, 1:2], dc[:, 2:3]
-        e1x, e1y, e1z = rec[..., 3], rec[..., 4], rec[..., 5]
-        e2x, e2y, e2z = rec[..., 6], rec[..., 7], rec[..., 8]
-        pvx = rdy * e2z - rdz * e2y
-        pvy = rdz * e2x - rdx * e2z
-        pvz = rdx * e2y - rdy * e2x
-        det = e1x * pvx + e1y * pvy + e1z * pvz
-        valid = det > 1.0e-12
-        inv_det = torch.where(valid, 1.0 / torch.where(valid, det, 1.0), 0.0)
-        tvx = rox - rec[..., 0]
-        tvy = roy - rec[..., 1]
-        tvz = roz - rec[..., 2]
-        uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
-        qvx = tvy * e1z - tvz * e1y
-        qvy = tvz * e1x - tvx * e1z
-        qvz = tvx * e1y - tvy * e1x
-        vv = (rdx * qvx + rdy * qvy + rdz * qvz) * inv_det
-        tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-        hit = (valid & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-               & (tt > T_MIN) & (tt < best_t[rows][:, None]))
+        uu, vv, tt, hit = record_hit(oc[:, 0:1], oc[:, 1:2], oc[:, 2:3],
+                                     dc[:, 0:1], dc[:, 1:2], dc[:, 2:3], rec)
+        hit = hit & (tt < best_t[rows][:, None])
         k = torch.argmin(torch.where(hit, tt, float("inf")), dim=1)   # first min
         won = hit.any(dim=1)
         rw = rows[won]

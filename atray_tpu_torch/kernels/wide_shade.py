@@ -24,8 +24,9 @@ from typing import Dict, Optional
 import torch
 
 from atray_tpu_torch.accel.shaded import RECS_PER_ROW, STRIDE32, ShadedWideBVH
-from atray_tpu_torch.core.intersect import INF, T_MIN
+from atray_tpu_torch.core.intersect import INF
 from atray_tpu_torch.kernels import _build
+from atray_tpu_torch.kernels._plain import inv_dir, record_hit
 
 STACK_CAP = 128     # per-thread stack entries; ATRAY_STACK_CAP in the .cu
 COUNTER = _build.COUNTERS["wide_shade"]
@@ -94,11 +95,6 @@ def wide_shade_planes(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz,
     return {k: out[k] for k in ("t", "id", "nx", "ny", "nz", "mat")}
 
 
-def _inv_dir(d):
-    zero = d == 0.0
-    return torch.where(zero, 1.0e30, 1.0 / torch.where(zero, 1.0, d))
-
-
 def wide_shade_planes_ref(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz,
                           alive, visits: Optional[dict] = None) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version of the kernel: a vectorized walk in which every
@@ -122,7 +118,7 @@ def wide_shade_planes_ref(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz,
     m = ray.shape[0]
     o = torch.stack([ox[ray], oy[ray], oz[ray]], dim=1)
     d = torch.stack([dx[ray], dy[ray], dz[ray]], dim=1)
-    inv = _inv_dir(d)
+    inv = inv_dir(d)
     best_t = torch.full((m,), INF, dtype=f32, device=dev)
     best_id = torch.full((m,), -1, dtype=i32, device=dev)
     best_n = torch.zeros((m, 3), dtype=f32, device=dev)
@@ -146,27 +142,9 @@ def wide_shade_planes_ref(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz,
         counts["records"] += ridx.numel()
         oc = o[rows]
         dc = d[rows]
-        rox, roy, roz = oc[:, 0:1], oc[:, 1:2], oc[:, 2:3]
-        rdx, rdy, rdz = dc[:, 0:1], dc[:, 1:2], dc[:, 2:3]
-        e1x, e1y, e1z = rec[..., 3], rec[..., 4], rec[..., 5]
-        e2x, e2y, e2z = rec[..., 6], rec[..., 7], rec[..., 8]
-        pvx = rdy * e2z - rdz * e2y
-        pvy = rdz * e2x - rdx * e2z
-        pvz = rdx * e2y - rdy * e2x
-        det = e1x * pvx + e1y * pvy + e1z * pvz
-        valid = det > 1.0e-12
-        inv_det = torch.where(valid, 1.0 / torch.where(valid, det, 1.0), 0.0)
-        tvx = rox - rec[..., 0]
-        tvy = roy - rec[..., 1]
-        tvz = roz - rec[..., 2]
-        uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
-        qvx = tvy * e1z - tvz * e1y
-        qvy = tvz * e1x - tvx * e1z
-        qvz = tvx * e1y - tvy * e1x
-        vv = (rdx * qvx + rdy * qvy + rdz * qvz) * inv_det
-        tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-        hit = (valid & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-               & (tt > T_MIN) & (tt < best_t[rows][:, None]))
+        uu, vv, tt, hit = record_hit(oc[:, 0:1], oc[:, 1:2], oc[:, 2:3],
+                                     dc[:, 0:1], dc[:, 1:2], dc[:, 2:3], rec)
+        hit = hit & (tt < best_t[rows][:, None])
         k = torch.argmin(torch.where(hit, tt, float("inf")), dim=1)   # first min
         won = hit.any(dim=1)
         rw, kw = rows[won], k[won]

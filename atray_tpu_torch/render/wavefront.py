@@ -14,10 +14,16 @@ Two hit paths, chosen by the accel:
   call is a ``torch.autograd.Function`` whose backward replays
   Möller–Trumbore and the normal from the saved face id and the per-trace
   face table in plain PyTorch, so the backward never walks the BVH again.
-- ``WideBVH`` (``make_accel``, the trainer's accel): ``nearest_hit_ids``
-  walks it with ``wide_exact`` for integer hit ids, and the differentiable
-  ``resolve_hit`` recomputes the hit from them. The ids are what each
-  bounce keeps for the backward.
+  With ``pair_bounces`` the bounces after the first take the same data
+  from ``treelet_pair_hit`` (the pair-binned traversal) instead; the
+  camera bounce keeps ``wide_shade``, and the backward is the same replay.
+- The gather path: ``nearest_hit_ids`` walks a ``WideBVH`` (``make_accel``,
+  the trainer's accel) with ``wide_exact``, a ``TreePack`` with
+  ``ppacket`` and a binary ``BVH`` with the plain ``bvh_first_hit`` for
+  integer hit ids, and the differentiable ``resolve_hit`` recomputes the
+  hit from them. The ids are what each bounce keeps for the backward. A
+  ``HybridAccel`` walks its ``wide`` half for the camera bounce and its
+  ``pack`` half for the later ones.
 
 Gradients follow the detached-visibility convention: which primitive a ray
 hits carries no derivative; t, barycentrics, normals and material
@@ -40,22 +46,26 @@ Shading convention (shared with the reference and its oracle):
   next direction blends a jittered diffuse and a mirror bounce by scatter.
 
 Not ported yet, and refused with NotImplementedError: NEE, AA jitter,
-textures, the pair-binned traversal, explicit uniforms, hit overrides and
-the brute-force triangle path (``accel=None`` with triangles). The
-reference's TPU schedule switches (``ATRAY_*`` environment variables) are
-not carried: they select film-identical variants.
+textures, explicit uniforms, hit overrides and the brute-force triangle
+path (``accel=None`` with triangles). The reference's TPU schedule
+switches (``ATRAY_*`` environment variables) are not carried: they select
+film-identical variants.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from atray_tpu_torch.accel.bvh import BVH
+from atray_tpu_torch.accel.pack import TreePack
 from atray_tpu_torch.accel.shaded import ShadedWideBVH
-from atray_tpu_torch.accel.wide import WideBVH
+from atray_tpu_torch.accel.traverse import bvh_first_hit
+from atray_tpu_torch.accel.wide import HybridAccel, WideBVH
 from atray_tpu_torch.config import RenderSettings
 from atray_tpu_torch.core.camera import Camera, camera_rays
 from atray_tpu_torch.core.intersect import (
@@ -74,6 +84,8 @@ from atray_tpu_torch.kernels.lane_pack import (
     pack_indices,
     unpack_indices,
 )
+from atray_tpu_torch.kernels.persistent_packet import ppacket_first_hit
+from atray_tpu_torch.kernels.treelet_pairs import treelet_pair_hit
 from atray_tpu_torch.kernels.wide_exact import wide_exact_first_hit
 from atray_tpu_torch.kernels.wide_shade import wide_shade_planes
 from atray_tpu_torch.render.rng import ray_uniform_cols, split
@@ -84,6 +96,9 @@ PRIM_NONE = 0
 PRIM_TRI = 1
 PRIM_SPHERE = 2
 PRIM_PLANE = 3
+
+# accels whose bounces take the gather path (integer ids + resolve_hit)
+_GATHER_ACCELS = (WideBVH, TreePack, BVH)
 
 
 class WaveState(NamedTuple):
@@ -308,13 +323,17 @@ def _replay_hit(face_table, fid_c, ox, oy, oz, dx, dy, dz):
 
 
 class _FusedHit(torch.autograd.Function):
-    """Forward: the ``wide_shade`` kernel (t, nx, ny, nz, face id, material
-    id). Backward: the hit replayed from the saved face id, ray planes and
-    face table (``_replay_hit``), miss-lane cotangents zeroed; no walk."""
+    """Forward: the ``wide_shade`` kernel, or with ``pair`` the pair-binned
+    ``treelet_pair_hit`` (t, nx, ny, nz, face id, material id). Backward:
+    the hit replayed from the saved face id, ray planes and face table
+    (``_replay_hit``), miss-lane cotangents zeroed; no walk."""
 
     @staticmethod
-    def forward(ctx, accel, face_table, ox, oy, oz, dx, dy, dz, alive):
-        fo = wide_shade_planes(accel, ox, oy, oz, dx, dy, dz, alive)
+    def forward(ctx, accel, pair, face_table, ox, oy, oz, dx, dy, dz, alive):
+        if pair:
+            fo, _ = treelet_pair_hit(accel, ox, oy, oz, dx, dy, dz, alive)
+        else:
+            fo = wide_shade_planes(accel, ox, oy, oz, dx, dy, dz, alive)
         ctx.mark_non_differentiable(fo["id"], fo["mat"])
         ctx.save_for_backward(face_table, ox, oy, oz, dx, dy, dz, fo["id"])
         return fo["t"], fo["nx"], fo["ny"], fo["nz"], fo["id"], fo["mat"]
@@ -322,9 +341,9 @@ class _FusedHit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_t, g_nx, g_ny, g_nz, _g_id, _g_mat):
         face_table, ox, oy, oz, dx, dy, dz, fid = ctx.saved_tensors
-        need = ctx.needs_input_grad[1:8]
+        need = ctx.needs_input_grad[2:9]
         if not any(need):
-            return (None,) * 9
+            return (None,) * 10
         hit = fid >= 0
         fid_c = torch.clamp(fid, 0, face_table.shape[0] - 1).long()
         with torch.enable_grad():
@@ -334,19 +353,20 @@ class _FusedHit(torch.autograd.Function):
             cot = [torch.where(hit, g, 0.0) for g in (g_t, g_nx, g_ny, g_nz)]
             grads = iter(torch.autograd.grad(outs, [x for x in ins if x.requires_grad], cot,
                                              allow_unused=True))
-        return (None, *(next(grads) if r else None for r in need), None)
+        return (None, None, *(next(grads) if r else None for r in need), None)
 
 
 def fused_hit(scene: Scene, accel: Optional[ShadedWideBVH], face_table,
-              ox, oy, oz, dx, dy, dz, alive):
+              ox, oy, oz, dx, dy, dz, alive, pair: bool = False):
     """Triangle-class nearest hit over a ``ShadedWideBVH``:
-    (t, nx, ny, nz, face id, material id) as flat planes."""
+    (t, nx, ny, nz, face id, material id) as flat planes; ``pair`` takes
+    the pair-binned traversal."""
     if scene.mesh.num_faces > 0:
         if accel is None:
             raise NotImplementedError(
                 "accel=None with triangles: the brute-force triangle path is not "
                 "ported yet; pass build_shaded_accel(scene) or make_accel(...)")
-        return _FusedHit.apply(accel, face_table, ox, oy, oz, dx, dy, dz, alive)
+        return _FusedHit.apply(accel, pair, face_table, ox, oy, oz, dx, dy, dz, alive)
     t = torch.full_like(ox, INF)
     zero = torch.zeros_like(ox)
     fid = torch.full(ox.shape, -1, dtype=torch.int32, device=ox.device)
@@ -368,10 +388,12 @@ def _shade_fused(scene, face_table, ox, oy, oz, dx, dy, dz, t, nx, ny, nz, fid, 
 
 @torch.no_grad()
 def nearest_hit_ids(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
-                    accel: Optional[WideBVH] = None) -> HitIds:
+                    accel=None) -> HitIds:
     """Nearest primitive per ray over every class: triangles through the
-    ``wide_exact`` walk of a ``WideBVH``, then spheres, then planes, a later
-    class winning only on a strictly smaller t. Detached by intent."""
+    accel's walk (``wide_exact`` for a ``WideBVH``, ``ppacket`` for a
+    ``TreePack``, ``bvh_first_hit`` for a ``BVH``), then spheres, then
+    planes, a later class winning only on a strictly smaller t. Detached by
+    intent."""
     o = orig.detach().contiguous()
     d = dirn.detach().contiguous()
     r = o.shape[0]
@@ -390,9 +412,15 @@ def nearest_hit_ids(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
             raise NotImplementedError(
                 "accel=None with triangles: the brute-force triangle path is not "
                 "ported yet; pass make_accel(...)")
-        if not isinstance(accel, WideBVH):
-            raise TypeError(f"nearest_hit_ids takes a WideBVH, not {type(accel).__name__}")
-        t, _, _, tid = wide_exact_first_hit(accel, o, d)
+        if isinstance(accel, WideBVH):
+            t, _, _, tid = wide_exact_first_hit(accel, o, d)
+        elif isinstance(accel, TreePack):
+            t, _, _, tid = ppacket_first_hit(accel, o, d)
+        elif isinstance(accel, BVH):
+            t, _, _, tid = bvh_first_hit(accel, scene, o, d)
+        else:
+            raise TypeError(f"nearest_hit_ids takes a WideBVH, TreePack or BVH, "
+                            f"not {type(accel).__name__}")
         merge(t, tid, PRIM_TRI)
     if scene.spheres.count > 0:
         merge(*sphere_hits(o, d, scene.spheres.centers, scene.spheres.radii), PRIM_SPHERE)
@@ -528,23 +556,25 @@ def _face_table_for(scene: Scene, accel, record: bool) -> Optional[torch.Tensor]
     """The face table where a pass reads it: the gather path's
     ``resolve_hit`` always, the fused hit's backward replay only when
     autograd records."""
-    if record or isinstance(accel, WideBVH):
+    if record or isinstance(accel, (*_GATHER_ACCELS, HybridAccel)):
         return build_face_table(scene)
     return None
 
 
-def bounce_step(scene: Scene, accel, face_table, st: WaveState, b: int, key) -> WaveState:
-    """One wavefront bounce over flat (R,) planes: the hit query, then
-    ``_shade_bounce``, checkpointed when autograd records it."""
+def bounce_step(scene: Scene, accel, face_table, st: WaveState, b: int, key,
+                pair: bool = False) -> WaveState:
+    """One wavefront bounce over flat (R,) planes: the hit query (with
+    ``pair``, the pair-binned one), then ``_shade_bounce``, checkpointed
+    when autograd records it."""
     ox, oy, oz, dx, dy, dz = st.ox, st.oy, st.oz, st.dx, st.dy, st.dz
     # rays cast = live paths entering the bounce
     rc = st.rc + st.alive.sum()
-    if isinstance(accel, WideBVH):
+    if isinstance(accel, _GATHER_ACCELS):
         ids = nearest_hit_ids(scene, torch.stack([ox, oy, oz], dim=1),
                               torch.stack([dx, dy, dz], dim=1), accel)
         hit, shade_hit = tuple(ids), _shade_standard
     else:
-        hit = fused_hit(scene, accel, face_table, ox, oy, oz, dx, dy, dz, st.alive)
+        hit = fused_hit(scene, accel, face_table, ox, oy, oz, dx, dy, dz, st.alive, pair)
         shade_hit = _shade_fused
 
     def shade(*planes):
@@ -658,9 +688,8 @@ def compact_state(scene: Scene, st: WaveState, lane_pack: bool) -> Tuple[WaveSta
     return st, restore
 
 
-def _refuse(nee=False, pair_bounces=False, anti_aliasing=False):
-    for name, on in (("nee", nee), ("pair_bounces", pair_bounces),
-                     ("anti_aliasing", anti_aliasing)):
+def _refuse(nee=False, anti_aliasing=False):
+    for name, on in (("nee", nee), ("anti_aliasing", anti_aliasing)):
         if on:
             raise NotImplementedError(f"{name}=True is not ported yet")
 
@@ -669,13 +698,27 @@ def _accel_on(accel, dev: torch.device):
     """A host accel uploaded to ``dev``; an uploaded one must be there."""
     if accel is None:
         return None
-    if not isinstance(accel, (ShadedWideBVH, WideBVH)):
+    if not isinstance(accel, (ShadedWideBVH, HybridAccel, *_GATHER_ACCELS)):
         raise TypeError(f"unknown accel type {type(accel).__name__}")
-    if not isinstance(accel.cboxes, torch.Tensor):
+    probe = accel.wide if isinstance(accel, HybridAccel) else accel
+    table = getattr(probe, dataclasses.fields(probe)[0].name)     # its first table
+    if not isinstance(table, torch.Tensor):
         return accel.to(dev)
-    if accel.device != dev:
-        raise ValueError(f"accel is on {accel.device}, the rays on {dev}")
+    if table.device != dev:
+        raise ValueError(f"accel is on {table.device}, the rays on {dev}")
     return accel
+
+
+def _split_accel(accel, pair_bounces: bool):
+    """(camera-bounce accel, later-bounce accel, pair): a ``HybridAccel``
+    splits into its two halves; ``pair`` holds when ``pair_bounces`` asks
+    for the pair-binned traversal and the later-bounce accel is a
+    ``ShadedWideBVH`` with a treelet view (any other accel ignores it)."""
+    if isinstance(accel, HybridAccel):
+        return accel.wide, accel.pack, False
+    pair = (pair_bounces and isinstance(accel, ShadedWideBVH)
+            and accel.num_treelets > 0 and accel.tboxes is not None)
+    return accel, accel, pair
 
 
 def trace_radiance(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
@@ -686,13 +729,15 @@ def trace_radiance(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
                    lane_pack: bool = True, pair_bounces: bool = False):
     """Path-trace each ray to its radiance (R, 3) on the rays' device (the
     scene and a host accel are moved there). ``accel`` is a
-    ``ShadedWideBVH`` (fused hit) or a ``WideBVH`` (gather path). ``key``
+    ``ShadedWideBVH`` (fused hit; ``pair_bounces`` takes the pair-binned
+    traversal after the camera bounce) or a ``WideBVH``, ``TreePack``,
+    ``BVH`` or ``HybridAccel`` (gather path). ``key``
     is the uint32[2] bounce key; ``ray_ids`` (default 0..R-1) are the global
     ids that key the per-ray random numbers. Differentiable with respect
     to the scene's float leaves and the rays. With ``return_stats`` also
     returns ``{"rays_cast": int64 tensor}``, the live paths summed over
     bounces."""
-    _refuse(nee=nee, pair_bounces=pair_bounces)
+    _refuse(nee=nee)
     if scene.texture is not None:
         raise NotImplementedError("textured scenes are not ported yet")
     dev = orig.device
@@ -702,14 +747,14 @@ def trace_radiance(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
         ray_ids = torch.arange(orig.shape[0], dtype=torch.int32, device=dev)
     face_table = _face_table_for(scene, accel, _records(scene, orig, dirn))
     color, rays_cast = _trace(scene, accel, face_table, orig, dirn, ray_ids,
-                              bounce_limit, key, sort_rays, lane_pack)
+                              bounce_limit, key, sort_rays, lane_pack, pair_bounces)
     if return_stats:
         return color, {"rays_cast": rays_cast}
     return color
 
 
 def _trace(scene, accel, face_table, orig, dirn, ray_ids, bounce_limit, key,
-           sort_rays, lane_pack):
+           sort_rays, lane_pack, pair_bounces=False):
     """The bounce loop of ``trace_radiance`` on a scene and accel already on
     the rays' device: (color (R, 3), rays_cast)."""
     dev = orig.device
@@ -724,8 +769,11 @@ def _trace(scene, accel, face_table, orig, dirn, ray_ids, bounce_limit, key,
         torch.zeros((), dtype=torch.int64, device=dev),
     )
 
+    primary, later, pair = _split_accel(accel, pair_bounces)
+
     def step(st, b):
-        return bounce_step(scene, accel, face_table, st, b, key)
+        return bounce_step(scene, later if b else primary, face_table, st, b, key,
+                           pair=pair and b > 0)
 
     start = 0
     if bounce_limit > 0:
@@ -783,7 +831,8 @@ def _trace_chunked(scene, orig, dirn, ray_ids, settings: RenderSettings, key, ac
     n = orig.shape[0]
     chunk = settings.ray_chunk
     face_table = _face_table_for(scene, accel, _records(scene, orig, dirn))
-    bounce_args = (settings.bounce_limit, key, settings.sort_bounces, settings.lane_pack)
+    bounce_args = (settings.bounce_limit, key, settings.sort_bounces, settings.lane_pack,
+                   settings.pair_bounces)
     if not chunk or chunk >= n:
         return _trace(scene, accel, face_table, orig, dirn, ray_ids, *bounce_args)
     pad = (-n) % chunk
@@ -819,8 +868,7 @@ def render(scene: Scene, camera: Camera, settings: RenderSettings, key,
     bounce key, as in the reference. Differentiable with respect to the
     scene's float leaves (``Scene.with_params``); the film clamp is
     ``clip01``."""
-    _refuse(nee=settings.nee, pair_bounces=settings.pair_bounces,
-            anti_aliasing=settings.anti_aliasing)
+    _refuse(nee=settings.nee, anti_aliasing=settings.anti_aliasing)
     if scene.texture is not None:
         raise NotImplementedError("textured scenes are not ported yet")
     dev = resolve_device(device)

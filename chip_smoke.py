@@ -53,7 +53,29 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
    vertices corrupted as ``examples/inverse_render.py`` does, Adam 3e-2
    (albedo) and 5e-4 (vertices), ``refit=True``: 4 steps on ``make_accel``,
    then 2 on the shaded accel; the loss of the last step must be below the
-   first's, ``wide_exact`` and ``wide_shade`` must have launched.
+   first's, ``wide_exact`` and ``wide_shade`` must have launched;
+10. the pair-binned traversal's kernels on the slice accel (776 treelets)
+    at one chunk's bounce rays (phase 3's hemisphere rays from the
+    4,147,200 primaries' hit points): Phase A (``treelet_candidates``) and
+    Phase B (``treelet_pair_walk``, on the binned and capped pairs) against
+    their plain versions, equal (torch.equal); the same on a small accel
+    whose last treelet row has NaN pad lanes; then ``treelet_pair_hit``
+    against ``wide_shade`` on those rays under phase 3's rules;
+11. the slice with ``pair_bounces=True``: one warm-up frame and two timed
+    ones with phase 4's keys; the film must equal phase 4's film of the
+    same key (pixels that differ are counted, at most 0.05%: an exact tie
+    may pick a coincident face), Phase A and Phase B must have launched 16
+    times a frame (4 chunks x bounces 1-4), no plain version may run; a
+    profiled frame; then phase 8's gradient with ``pair_bounces=True``:
+    the pair kernels launch in the forward only, and the gradient equals
+    the default path's (within 1e-4 of max |g| but for 0.2% of values);
+12. ``ppacket`` (the ``TreePack`` walk) against ``ppacket_ref`` on 65,536
+    mixed rays and on the gradient config's 2,073,600 primaries and their
+    bounce rays (phase 7's rules), over a ``HybridAccel`` of the slice
+    mesh at leaf_size 8; then ``render`` at the gradient config with that
+    ``HybridAccel`` and with ``make_accel`` (leaf_size 8), timed, the films
+    equal but for counted tie pixels (at most 0.05%), ``wide_exact``
+    launched once and ``ppacket`` twice per render, no plain version.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Then a JSON line of per-kernel results (times, launches, bound),
@@ -64,6 +86,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -75,6 +98,9 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 peak outside the tensor cores
 OPS_PER_CHILD_BOX = 25        # slab test of one child box (subs, muls, min/max, compares)
 OPS_PER_RECORD = 52           # Moller-Trumbore test of one leaf record
+OPS_PER_TREELET = 45          # Phase A: slab test, clamp and insertion of one treelet box
+OPS_PER_NODE = 25             # slab test of one binary node box (ppacket)
+TIE_PIXELS = 0.0005           # share of film pixels an exact tie may change
 
 
 def _bound(nbytes: float, ops: float = 0.0):
@@ -187,43 +213,52 @@ def phase_lane_take(dev, gpu):
     return res
 
 
-def _compare_hits(accel, planes, alive, label, gpu):
-    """Kernel vs plain version on one ray set; returns (max error, kernel
-    ms, plain ms, kernel output)."""
+def _planes_rules(got, want, alive, label):
+    """Phase 3's rules for two sets of hit planes: dead lanes give the miss
+    sentinel, t within 1 ulp, normals within 1e-6, materials equal, a
+    differing id only where ``want`` hits (a coincident face). Returns
+    (id differences, max |dt| over hits, max normal error, hits)."""
     import numpy as np
     import torch
 
     from atray_tpu_torch.core.intersect import INF
-    from atray_tpu_torch.kernels.wide_shade import wide_shade_planes, wide_shade_planes_ref
 
-    got = wide_shade_planes(accel, *planes, alive)
-    visits = {}
-    want = wide_shade_planes_ref(accel, *planes, alive, visits=visits)
     torch.cuda.synchronize()
     g = {k: v.cpu().numpy() for k, v in got.items()}
     w = {k: v.cpu().numpy() for k, v in want.items()}
-    al = alive.cpu().numpy()
-    dead = ~al
+    dead = ~alive.cpu().numpy()
     if not (np.all(g["t"][dead] == np.float32(INF)) and np.all(g["id"][dead] == -1)
             and all(np.all(g[k][dead] == 0) for k in ("nx", "ny", "nz", "mat"))):
-        raise AssertionError(f"wide_shade {label}: dead lanes do not give the miss sentinel")
+        raise AssertionError(f"{label}: dead lanes do not give the miss sentinel")
     hit = w["id"] >= 0
     ulp = np.spacing(np.abs(w["t"]).astype(np.float32))
     dt = np.abs(g["t"] - w["t"])
     id_diff = g["id"] != w["id"]
     nerr = max(float(np.abs(g[k] - w[k]).max()) for k in ("nx", "ny", "nz"))
     if np.any(dt > ulp):
-        raise AssertionError(f"wide_shade {label}: t differs by more than 1 ulp on "
+        raise AssertionError(f"{label}: t differs by more than 1 ulp on "
                              f"{int((dt > ulp).sum())} rays")
     if nerr > 1e-6 or not np.array_equal(g["mat"], w["mat"]):
-        raise AssertionError(f"wide_shade {label}: normal error {nerr} or material mismatch")
+        raise AssertionError(f"{label}: normal error {nerr} or material mismatch")
     if np.any(id_diff & ~hit):
-        raise AssertionError(f"wide_shade {label}: a plain-version miss is a kernel hit")
-    max_abs_t = float(dt[hit].max()) if hit.any() else 0.0
+        raise AssertionError(f"{label}: a miss of the reference planes is a hit")
+    return int(id_diff.sum()), float(dt[hit].max()) if hit.any() else 0.0, nerr, hit
+
+
+def _compare_hits(accel, planes, alive, label, gpu):
+    """Kernel vs plain version on one ray set; returns (max error, kernel
+    ms, plain ms, kernel output)."""
+    from atray_tpu_torch.kernels.wide_shade import wide_shade_planes, wide_shade_planes_ref
+
+    got = wide_shade_planes(accel, *planes, alive)
+    visits = {}
+    want = wide_shade_planes_ref(accel, *planes, alive, visits=visits)
+    n_diff, max_abs_t, nerr, hit = _planes_rules(got, want, alive, f"wide_shade {label}")
+    al = alive.cpu().numpy()
     ms = _cuda_ms(lambda: wide_shade_planes(accel, *planes, alive), 20)
     plain_ms = _host_ms(lambda: wide_shade_planes_ref(accel, *planes, alive))
     print(f"phase 3 wide_shade {label}: {alive.shape[0]} rays ({int(al.sum())} live, "
-          f"{int(hit.sum())} hits): ids differ on {int(id_diff.sum())} (coincident faces), "
+          f"{int(hit.sum())} hits): ids differ on {n_diff} (coincident faces), "
           f"max |dt| {max_abs_t:.3g}, max normal err {nerr:.3g}; kernel {ms:.4f} ms, "
           f"plain {plain_ms:.1f} ms [{gpu}]")
     tab = sum(getattr(accel, k).nbytes for k in ("cboxes", "clinks", "caxis", "tris"))
@@ -266,14 +301,15 @@ def _hemisphere_rays(o, d, hit_out, rng, dev):
     return org, u, hit
 
 
+def _planes_of(o, d):
+    return [o[:, k].contiguous() for k in range(3)] + [d[:, k].contiguous() for k in range(3)]
+
+
 def phase_wide_shade(accel, dev, gpu):
     import numpy as np
     import torch
 
     from atray_tpu_torch.core.camera import camera_rays, look_at_camera
-
-    def planes_of(o, d):
-        return [o[:, k].contiguous() for k in range(3)] + [d[:, k].contiguous() for k in range(3)]
 
     rng = np.random.default_rng(12)
     # 65,536 rays: 32,768 camera primaries and 32,768 bounce-like rays from
@@ -283,17 +319,17 @@ def phase_wide_shade(accel, dev, gpu):
     pick = torch.from_numpy(rng.choice(o.shape[0], 32_768, replace=False)).to(dev)
     o, d = o[pick], d[pick]
     ones = torch.ones(o.shape[0], dtype=torch.bool, device=dev)
-    _, _, _, prim, _ = _compare_hits(accel, planes_of(o, d), ones, "primaries 32768", gpu)
+    _, _, _, prim, _ = _compare_hits(accel, _planes_of(o, d), ones, "primaries 32768", gpu)
     bo, bd, _ = _hemisphere_rays(o, d, prim, rng, dev)
     alive = torch.from_numpy(rng.random(2 * o.shape[0]) >= 0.1).to(dev)
-    err1, _, _, _, _ = _compare_hits(accel, planes_of(torch.cat([o, bo]), torch.cat([d, bd])),
+    err1, _, _, _, _ = _compare_hits(accel, _planes_of(torch.cat([o, bo]), torch.cat([d, bd])),
                                      alive, "65536 mixed", gpu)
     # the main path's shape: one chunk of 4,147,200 rays
     o, d = _chunk_rays(dev)
     ones = torch.ones(o.shape[0], dtype=torch.bool, device=dev)
-    err2, _, _, prim, _ = _compare_hits(accel, planes_of(o, d), ones, "chunk primaries", gpu)
+    err2, _, _, prim, _ = _compare_hits(accel, _planes_of(o, d), ones, "chunk primaries", gpu)
     bo, bd, hit = _hemisphere_rays(o, d, prim, rng, dev)
-    err3, ms, plain_ms, _, bound = _compare_hits(accel, planes_of(bo, bd), hit, "chunk bounce",
+    err3, ms, plain_ms, _, bound = _compare_hits(accel, _planes_of(bo, bd), hit, "chunk bounce",
                                                  gpu)
     return max(err1, err2, err3), ms, plain_ms, bound
 
@@ -349,10 +385,11 @@ def phase_slice(scene, accel, dev, gpu):
           f"plain calls 0; film std {f.std():.4f}; wrote out/chip_smoke.png")
     frame_s = sum(sec for sec, _ in frames) / len(frames)
     _profile_frame(lambda: render(scene, cam, settings, prng_key(3), accel=accel), frame_s, gpu)
-    return counts
+    return counts, film, frames
 
 
-_KERNEL_NAMES = ("wide_shade", "lane_take", "lane_scatter", "wide_exact")
+_KERNEL_NAMES = ("wide_shade", "lane_take", "lane_scatter", "wide_exact", "treelet_phase_a",
+                 "treelet_phase_b", "ppacket")
 
 
 def _profile_frame(run, frame_s, gpu, label="phase 4", what="one slice frame"):
@@ -725,6 +762,324 @@ def phase_trainer(wide_host, dev, gpu):
                    sum(secs[1:4]) / 3, gpu, "phase 9", "one make_accel trainer step")
     return counts
 
+def _nan_lane_case(dev, rng):
+    """A small shaded accel whose last treelet row has NaN pad lanes
+    (dragon_proxy(1200), leaf_size 16, 2 leaves per treelet) and 65,536
+    rays around it, 10% dead."""
+    import numpy as np
+    import torch
+
+    from atray_tpu_torch.accel.shaded import build_shaded_accel
+    from atray_tpu_torch.config import KDTreeConfig
+    from atray_tpu_torch.scene import build_scene, procedural
+    from atray_tpu_torch.scene.data import make_materials
+    from atray_tpu_torch.scene.transforms import translate
+
+    mats = make_materials([((0.3, 0.4, 0.6), (0.0, 0.0, 0.0), 0.0),
+                           ((0.0, 0.0, 0.0), (0.7, 0.6, 0.5), 0.1)])
+    mesh = translate(procedural.dragon_proxy(target_tris=1200, material=1), (0.0, 0.0, -4.0))
+    host = build_shaded_accel(build_scene([mesh], materials=mats),
+                              KDTreeConfig(leaf_size=16, leaves_per_treelet=2))
+    if not (host.num_treelets % 8 and np.isnan(host.tboxes[:, :48]).any()):
+        raise AssertionError("the small accel has no NaN pad lanes")
+    n = 65_536
+    o = (rng.normal(size=(n, 3)) * 0.8 + [0.0, 0.0, -4.0]).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    alive = torch.from_numpy(rng.random(n) >= 0.1).to(dev)
+    return host.to(dev), _planes_of(torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)), alive
+
+
+def _pair_kernels(acc, planes, alive, label, gpu):
+    """Phase A and Phase B kernels vs their plain versions on one ray set
+    (Phase B on the binned, capped pairs of Phase A's candidates); returns
+    {"a": (ms, plain ms, bound), "b": (...)}."""
+    import torch
+
+    from atray_tpu_torch.kernels.treelet_pairs import (
+        PAIR_K, bin_pairs, pair_cap, treelet_candidates, treelet_candidates_ref,
+        treelet_pair_walk, treelet_pair_walk_ref)
+
+    n = alive.shape[0]
+    tids, bound = treelet_candidates(acc, *planes, alive, PAIR_K)
+    want = treelet_candidates_ref(acc, *planes, alive, PAIR_K)
+    torch.cuda.synchronize()
+    if not (torch.equal(tids, want[0]) and torch.equal(bound, want[1])):
+        raise AssertionError(f"treelet_phase_a {label}: kernel != plain version")
+    if int(tids.max()) >= acc.num_treelets:
+        raise AssertionError(f"treelet_phase_a {label}: a pad lane became a candidate")
+    a_ms = _cuda_ms(lambda: treelet_candidates(acc, *planes, alive, PAIR_K), 20)
+    a_plain = _host_ms(lambda: treelet_candidates_ref(acc, *planes, alive, PAIR_K))
+    live = int(alive.sum())
+    t_pad = 8 * acc.tboxes.shape[0]
+    a_bound = _bound(sum(p.nbytes for p in planes) + alive.nbytes + acc.tboxes.nbytes
+                     + tids.nbytes + bound.nbytes, live * t_pad * OPS_PER_TREELET)
+    n_cand = int((tids >= 0).sum())
+    print(f"phase 10 treelet_phase_a {label}: {n} rays ({live} live), {acc.num_treelets} "
+          f"treelets ({t_pad} with pads), K={PAIR_K}: equal, {n_cand} candidates, "
+          f"{int((bound < 1e30).sum())} rays with a (K+1)-th; kernel {a_ms:.4f} ms, plain "
+          f"{a_plain:.1f} ms, bound {a_bound[0]:.4f} ms by {a_bound[1]} [{gpu}]")
+
+    cap = pair_cap(n)
+    _, perm, ptid = bin_pairs(tids, acc.num_treelets, cap)
+    pairs = list(torch.index_select(torch.stack(planes), 1, perm[:cap] % n))
+    got = treelet_pair_walk(acc, *pairs, ptid)
+    visits = {}
+    ref = treelet_pair_walk_ref(acc, *pairs, ptid, visits=visits)
+    torch.cuda.synchronize()
+    for key in got:
+        if not torch.equal(got[key], ref[key]):
+            raise AssertionError(f"treelet_phase_b {label}: kernel != plain version ({key})")
+    b_ms = _cuda_ms(lambda: treelet_pair_walk(acc, *pairs, ptid), 20)
+    b_plain = _host_ms(lambda: treelet_pair_walk_ref(acc, *pairs, ptid))
+    b_bound = _bound(sum(p.nbytes for p in pairs) + ptid.nbytes + acc.tris.nbytes
+                     + sum(v.nbytes for v in got.values()), visits["records"] * OPS_PER_RECORD)
+    print(f"phase 10 treelet_phase_b {label}: {cap} pair slots ({int((ptid >= 0).sum())} live, "
+          f"{int((got['id'] >= 0).sum())} hits, {visits['records']} records tested): equal; "
+          f"kernel {b_ms:.4f} ms, plain {b_plain:.1f} ms, bound {b_bound[0]:.4f} ms by "
+          f"{b_bound[1]} [{gpu}]")
+    return {"a": (a_ms, a_plain, a_bound), "b": (b_ms, b_plain, b_bound)}
+
+
+def phase_pair_kernels(accel, dev, gpu):
+    import numpy as np
+    import torch
+
+    from atray_tpu_torch.kernels.treelet_pairs import treelet_pair_hit
+    from atray_tpu_torch.kernels.wide_shade import wide_shade_planes
+
+    rng = np.random.default_rng(15)
+    o, d = _chunk_rays(dev)
+    prim = wide_shade_planes(accel, *_planes_of(o, d),
+                             torch.ones(o.shape[0], dtype=torch.bool, device=dev))
+    bo, bd, alive = _hemisphere_rays(o, d, prim, rng, dev)
+    planes = _planes_of(bo, bd)
+    res = _pair_kernels(accel, planes, alive, "chunk bounce", gpu)
+    _pair_kernels(*_nan_lane_case(dev, rng), "NaN-lane accel", gpu)
+
+    got, unres = treelet_pair_hit(accel, *planes, alive)
+    walk = wide_shade_planes(accel, *planes, alive)
+    n_diff, max_dt, nerr, _ = _planes_rules(got, walk, alive, "treelet_pair_hit vs wide_shade")
+    pair_ms = _cuda_ms(lambda: treelet_pair_hit(accel, *planes, alive), 10)
+    walk_ms = _cuda_ms(lambda: wide_shade_planes(accel, *planes, alive), 10)
+    print(f"phase 10 treelet_pair_hit vs wide_shade, chunk bounce ({int(alive.sum())} live of "
+          f"{alive.shape[0]}): ids differ on {n_diff} (coincident faces), max |dt| {max_dt:.3g}, "
+          f"max normal err {nerr:.3g}, {int(unres.sum())} unresolved rays re-walked; "
+          f"treelet_pair_hit {pair_ms:.4f} ms, wide_shade {walk_ms:.4f} ms [{gpu}]")
+    return res
+
+
+def phase_pair_slice(scene, accel, walk_film, walk_frames, dev, gpu):
+    import numpy as np
+    import torch
+
+    from atray_tpu_torch.config import RenderSettings
+    from atray_tpu_torch.core.camera import look_at_camera
+    from atray_tpu_torch.render.rng import prng_key
+    from atray_tpu_torch.render.wavefront import render
+
+    settings = RenderSettings(resolution=(1920, 1080), samples_per_pixel=8, bounce_limit=5,
+                              ray_chunk=2 * 1920 * 1080, pair_bounces=True)
+    w, h, spp, bounces = settings.width, settings.height, 8, 5
+    cam = look_at_camera((0.0, 1.0, 0.8), (0.0, 0.0, -4.0), h_fov=0.9, aspect=16 / 9)
+    t0 = time.perf_counter()
+    render(scene, cam, settings, prng_key(0), accel=accel)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    _reset_counts()
+    frames = []
+    for seed in (1, 2):
+        t0 = time.perf_counter()
+        film, stats = render(scene, cam, settings, prng_key(seed), accel=accel,
+                             return_stats=True)
+        live = int(stats["rays_cast"])       # synchronizes
+        frames.append((time.perf_counter() - t0, live))
+    counts = _read_counts()
+    chunks = -(-(w * h * spp) // settings.ray_chunk)
+    per_frame = chunks * (bounces - 1)
+    for name in ("treelet_phase_a", "treelet_phase_b"):
+        if counts[name][0] != per_frame * len(frames):
+            raise AssertionError(f"{name} launched {counts[name][0]} times, not "
+                                 f"{per_frame} a frame")
+    if any(c[1] for c in counts.values()):
+        raise AssertionError(f"a plain version ran on the pair path: {counts}")
+    differ = (film != walk_film).any(dim=-1)
+    n_px = int(differ.sum())
+    if n_px > TIE_PIXELS * w * h:
+        raise AssertionError(f"pair film != walk film on {n_px} pixels")
+    for i, ((sec, live), (wsec, _)) in enumerate(zip(frames, walk_frames)):
+        print(f"phase 11 pair slice frame {i + 1}: {sec:.4f} s, live rays {live}, "
+              f"{live / sec:.6g} live rays/s (phase 4's walk frame {wsec:.4f} s, "
+              f"{live / wsec:.6g} live rays/s) [{gpu}]")
+    print(f"phase 11 pair slice: warm-up frame {warm_s:.4f} s; launches over the 2 timed frames "
+          f"treelet_phase_a {counts['treelet_phase_a'][0]}, treelet_phase_b "
+          f"{counts['treelet_phase_b'][0]}, wide_shade {counts['wide_shade'][0]}, lane_take "
+          f"{counts['lane_take'][0]}, plain calls 0; film of key 2 vs the walk film: "
+          f"{'torch.equal' if n_px == 0 else f'{n_px} pixels differ (ties)'}")
+    frame_s = sum(sec for sec, _ in frames) / len(frames)
+    _profile_frame(lambda: render(scene, cam, settings, prng_key(3), accel=accel), frame_s, gpu,
+                   "phase 11", "one pair slice frame")
+
+    # phase 8's gradient with pair_bounces: the pair kernels run in the forward only
+    gset = RenderSettings(resolution=(960, 540), samples_per_pixel=4, bounce_limit=3,
+                          ray_chunk=0)
+    cam = _bwd_camera()
+    out = {}
+    for pair in (True, False):
+        s = dataclasses.replace(gset, pair_bounces=pair)
+        p = _grad_leaves(scene)
+        render(scene.with_params(p), cam, s, prng_key(100), accel=accel).sum().backward()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        loss = render(scene.with_params(p), cam, s, prng_key(6), accel=accel).sum()
+        torch.cuda.synchronize()
+        t_f = time.perf_counter() - t0
+        fwd = _read_counts()
+        grads = torch.autograd.grad(loss, p.leaves())
+        torch.cuda.synchronize()
+        t_fb = time.perf_counter() - t0
+        out[pair] = (grads, fwd, _read_counts(), t_f, t_fb)
+    grads, fwd, after, t_f, t_fb = out[True]
+    for name in ("treelet_phase_a", "treelet_phase_b"):
+        if fwd[name][0] != 2 or after[name][0] != fwd[name][0]:
+            raise AssertionError(f"{name}: forward {fwd[name][0]}, after backward "
+                                 f"{after[name][0]} launches")
+    if any(c[1] for c in after.values()):
+        raise AssertionError(f"a plain version ran on the pair gradient: {after}")
+    worst = []
+    for name, a, b in zip(("vertices", "normals", "emission", "albedo", "scatter"),
+                          grads, out[False][0]):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        if not np.isfinite(a).all():
+            raise AssertionError(f"pair gradient of {name} is not finite")
+        scale = max(float(np.abs(b).max()), 1e-30)
+        bad = np.abs(a - b) > 1e-4 * scale
+        if bad.mean() > 0.002:
+            raise AssertionError(f"pair gradient of {name} differs from the default beyond "
+                                 f"1e-4 of max |g| on {int(bad.sum())} values")
+        worst.append(f"{name} {float(np.abs(a - b).max()) / scale:.3g}")
+    print(f"phase 11 pair gradient 960x540 x 4 spp x 3 bounces: forward {t_f:.4f} s, "
+          f"forward+backward {t_fb:.4f} s (default path {out[False][3]:.4f} s, "
+          f"{out[False][4]:.4f} s); treelet_phase_a/b launches forward "
+          f"{fwd['treelet_phase_a'][0]}/{fwd['treelet_phase_b'][0]}, after backward "
+          f"{after['treelet_phase_a'][0]}/{after['treelet_phase_b'][0]}; vs the default "
+          f"gradient, max |diff| / max |g|: {', '.join(worst)} [{gpu}]")
+    return counts
+
+
+def _packet_compare(pack, o, d, label, gpu):
+    """ppacket kernel vs plain version under phase 7's rules; returns (max
+    error, kernel ms, plain ms, bound)."""
+    import numpy as np
+    import torch
+
+    from atray_tpu_torch.kernels.persistent_packet import ppacket_first_hit, ppacket_ref
+
+    got = ppacket_first_hit(pack, o, d)
+    visits = {}
+    want = ppacket_ref(pack, o, d, visits=visits)
+    torch.cuda.synchronize()
+    (gt, gu, gv, gi), (wt, wu, wv, wi) = ([x.cpu().numpy() for x in r] for r in (got, want))
+    hit = wi >= 0
+    dt = np.abs(gt - wt)
+    if np.any(dt > np.spacing(np.abs(wt).astype(np.float32))):
+        raise AssertionError(f"ppacket {label}: t differs by more than 1 ulp")
+    same = gi == wi
+    if np.any(~same & ~hit):
+        raise AssertionError(f"ppacket {label}: a plain-version miss is a kernel hit")
+    uverr = max(float(np.abs(gu - wu)[same].max(initial=0.0)),
+                float(np.abs(gv - wv)[same].max(initial=0.0)))
+    if uverr > 1e-6:
+        raise AssertionError(f"ppacket {label}: u/v error {uverr}")
+    ms = _cuda_ms(lambda: ppacket_first_hit(pack, o, d), 20)
+    plain_ms = _host_ms(lambda: ppacket_ref(pack, o, d))
+    tab = sum(getattr(pack, k).nbytes for k in ("nodebox", "ctrl", "tris"))
+    io = o.nbytes + d.nbytes + sum(x.nbytes for x in got)
+    bound = _bound(io + tab, visits["nodes"] * OPS_PER_NODE + visits["records"] * OPS_PER_RECORD)
+    max_dt = float(dt[hit].max()) if hit.any() else 0.0
+    print(f"phase 12 ppacket {label}: {o.shape[0]} rays ({int(hit.sum())} hits): ids differ on "
+          f"{int((~same).sum())} (coincident faces), max |dt| {max_dt:.3g}, max u/v err "
+          f"{uverr:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms "
+          f"by {bound[1]} ({visits['nodes']} node visits, {visits['records']} records) [{gpu}]")
+    return max(max_dt, uverr), ms, plain_ms, bound
+
+
+def phase_ppacket(scene, scene_host, shaded, dev, gpu):
+    import numpy as np
+    import torch
+
+    from atray_tpu_torch.accel.wide import hybrid_from_mesh, make_accel
+    from atray_tpu_torch.config import KDTreeConfig, RenderSettings
+    from atray_tpu_torch.core.camera import camera_rays
+    from atray_tpu_torch.kernels.wide_shade import wide_shade_planes
+    from atray_tpu_torch.render.rng import prng_key
+    from atray_tpu_torch.render.wavefront import render, to_tile_order
+
+    v, f = scene_host.mesh.vertices, scene_host.mesh.faces
+    cfg = KDTreeConfig(leaf_size=8)
+    t0 = time.perf_counter()
+    hybrid = hybrid_from_mesh(v, f, cfg)
+    t_build = time.perf_counter() - t0
+    pack_bytes = sum(getattr(hybrid.pack, k).nbytes for k in ("nodebox", "ctrl", "tris"))
+    print(f"phase 12 host build: HybridAccel (leaf_size 8) {t_build:.2f} s "
+          f"({hybrid.pack.num_nodes} binary nodes, TreePack tables {pack_bytes / 1e6:.1f} MB, "
+          f"{hybrid.wide.num_nodes} wide nodes)")
+    hybrid = hybrid.to(dev)
+    wide = make_accel(v, f, cfg).to(dev)
+
+    def hemisphere(o, d, rng):
+        fo = wide_shade_planes(shaded, *_planes_of(o, d),
+                               torch.ones(o.shape[0], dtype=torch.bool, device=dev))
+        bo, bd, _ = _hemisphere_rays(o, d, fo, rng, dev)
+        return bo.contiguous(), bd.contiguous()
+
+    rng = np.random.default_rng(16)
+    o, d = camera_rays(_bwd_camera(), 960, 540, 1, device=dev)
+    pick = torch.from_numpy(rng.choice(o.shape[0], 32_768, replace=False)).to(dev)
+    o, d = o[pick], d[pick]
+    bo, bd = hemisphere(o, d, rng)
+    err1, _, _, _ = _packet_compare(hybrid.pack, torch.cat([o, bo]).contiguous(),
+                                    torch.cat([d, bd]).contiguous(), "65536 mixed", gpu)
+    o, d = camera_rays(_bwd_camera(), 960, 540, 4, device=dev)
+    o = to_tile_order(o, 960, 540, 4).contiguous()
+    d = to_tile_order(d, 960, 540, 4).contiguous()
+    err2, _, _, _ = _packet_compare(hybrid.pack, o, d, "chunk primaries", gpu)
+    bo, bd = hemisphere(o, d, rng)
+    err3, ms, plain_ms, bound = _packet_compare(hybrid.pack, bo, bd, "chunk bounce", gpu)
+
+    settings = RenderSettings(resolution=(960, 540), samples_per_pixel=4, bounce_limit=3,
+                              ray_chunk=0)
+    cam = _bwd_camera()
+    secs = {}
+    for name, acc in (("make_accel", wide), ("HybridAccel", hybrid), ("HybridAccel", hybrid),
+                      ("make_accel", wide)):
+        render(scene, cam, settings, prng_key(100), accel=acc)
+        _reset_counts()
+        t0 = time.perf_counter()
+        film = render(scene, cam, settings, prng_key(8), accel=acc)
+        torch.cuda.synchronize()
+        secs.setdefault(name, []).append(time.perf_counter() - t0)
+        counts = _read_counts()
+        if name == "HybridAccel":
+            h_film, h_counts = film, counts
+            if counts["wide_exact"][0] != 1 or counts["ppacket"][0] != 2:
+                raise AssertionError(f"HybridAccel render launches {counts}")
+        else:
+            w_film = film
+        if any(c[1] for c in counts.values()):
+            raise AssertionError(f"a plain version ran on the {name} render: {counts}")
+    n_px = int((h_film != w_film).any(dim=-1).sum())
+    if n_px > TIE_PIXELS * h_film.shape[0] * h_film.shape[1]:
+        raise AssertionError(f"HybridAccel film != make_accel film on {n_px} pixels")
+    print(f"phase 12 render 960x540 x 4 spp x 3 bounces, one chunk: HybridAccel "
+          f"{', '.join(f'{x:.4f}' for x in secs['HybridAccel'])} s, make_accel (leaf_size 8) "
+          f"{', '.join(f'{x:.4f}' for x in secs['make_accel'])} s; HybridAccel launches "
+          f"wide_exact {h_counts['wide_exact'][0]}, ppacket {h_counts['ppacket'][0]}, plain "
+          f"calls 0; films {'torch.equal' if n_px == 0 else f'differ on {n_px} pixels (ties)'} "
+          f"[{gpu}]")
+    return h_counts, max(err1, err2, err3), ms, plain_ms, bound
+
 
 def _entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -771,13 +1126,17 @@ def main() -> int:
     accel = accel_host.to(dev)
 
     ws_err, ws_ms, ws_plain, ws_bound = phase_wide_shade(accel, dev, gpu)
-    counts = phase_slice(scene, accel, dev, gpu)
+    counts, walk_film, walk_frames = phase_slice(scene, accel, dev, gpu)
     phase_small_vs_cpu(scene_host, accel_host, dev, gpu)
     phase_identity(scene, accel, gpu)
     ls = phase_lane_scatter(dev, gpu)
     wide_host, we_err, we_ms, we_plain, we_bound = phase_wide_exact(scene_host, accel, dev, gpu)
     g_counts, _ = phase_gradient(scene, accel, scene_host, accel_host, dev, gpu)
     t_counts = phase_trainer(wide_host.to(dev), dev, gpu)
+    pk = phase_pair_kernels(accel, dev, gpu)
+    p_counts = phase_pair_slice(scene, accel, walk_film, walk_frames, dev, gpu)
+    del walk_film
+    h_counts, pp_err, pp_ms, pp_plain, pp_bound = phase_ppacket(scene, scene_host, accel, dev, gpu)
 
     lt_ms, lt_plain = lt[(14, "pack")]
     n_chunk = 4_147_200
@@ -796,6 +1155,15 @@ def main() -> int:
         _entry("wide_exact", "atray_tpu_torch/csrc/wide_exact.cu",
                "atray_tpu/kernels/wide_exact.py:46", t_counts["wide_exact"][0], we_err,
                we_ms, we_plain, we_bound, None),
+        _entry("treelet_phase_a", "atray_tpu_torch/csrc/treelet_phase_a.cu",
+               "atray_tpu/kernels/treelet_pairs.py:69", p_counts["treelet_phase_a"][0], 0.0,
+               *pk["a"], None),
+        _entry("treelet_phase_b", "atray_tpu_torch/csrc/treelet_phase_b.cu",
+               "atray_tpu/kernels/treelet_pairs.py:186", p_counts["treelet_phase_b"][0], 0.0,
+               *pk["b"], None),
+        _entry("ppacket", "atray_tpu_torch/csrc/ppacket.cu",
+               "atray_tpu/kernels/persistent_packet.py:42", h_counts["ppacket"][0], pp_err,
+               pp_ms, pp_plain, pp_bound, None),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -196,7 +196,7 @@ def test_unported_options_raise():
     scene = scene_from_numpy(_tree(_pack_scene())).to("cpu")
     accel = build_shaded_accel(scene, KDTreeConfig(leaf_size=8)).to("cpu")
     cam = look_at_camera((0, 0.6, 0.7), (0, 0, -4), h_fov=0.9, aspect=2.0)
-    for opt in ("nee", "anti_aliasing", "pair_bounces"):
+    for opt in ("nee", "anti_aliasing"):
         s = RenderSettings(resolution=(16, 8), samples_per_pixel=1, **{opt: True})
         with pytest.raises(NotImplementedError, match=opt):
             tw.render(scene, cam, s, prng_key(0), accel=accel, device="cpu")
