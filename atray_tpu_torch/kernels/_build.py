@@ -59,6 +59,22 @@ _SIGNATURES = {
     "atray_ppacket": (
         [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 5
     ),
+    # the lineage walks: rays, node tables, leaf rows (the 8-wide ones then
+    # their stack and queue caps), 4 outputs, visit stats, stream
+    "atray_packet_walk": (
+        [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 6
+    ),
+    "atray_frustum_walk": (
+        [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 6
+    ),
+    "atray_wide_frustum": (
+        [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P] + [ctypes.c_int] * 3 + [_P] * 6
+    ),
+    "atray_persistent_wide": (
+        [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P] + [ctypes.c_int] * 3 + [_P] * 6
+        + [ctypes.c_int, _P]
+    ),
+    "atray_persistent_wide_grid": [],
 }
 
 
@@ -77,7 +93,9 @@ class Counter:
 
 COUNTERS: Dict[str, Counter] = {
     name: Counter() for name in ("wide_shade", "lane_take", "lane_scatter", "wide_exact",
-                                 "treelet_phase_a", "treelet_phase_b", "ppacket")
+                                 "treelet_phase_a", "treelet_phase_b", "ppacket",
+                                 "packet_walk", "frustum_walk", "wide_frustum",
+                                 "persistent_wide")
 }
 
 

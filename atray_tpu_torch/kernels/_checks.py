@@ -1,0 +1,72 @@
+"""Input checks shared by the hit-kernel wrappers: rays and the
+``TreePack`` / ``WideBVH`` tables. Each returns the one device of the call
+and raises on anything a kernel does not take."""
+
+from __future__ import annotations
+
+import torch
+
+from atray_tpu_torch.accel.pack import TRIS_PER_ROW
+
+
+def check_rays(orig: torch.Tensor, dirn: torch.Tensor, kernel: str) -> torch.device:
+    """(R, 3) float32 contiguous origins and directions on one CPU or CUDA device."""
+    dev = orig.device
+    for name, x in (("orig", orig), ("dirn", dirn)):
+        if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3 or x.device != dev:
+            raise TypeError(f"{name} must be an (R, 3) float32 tensor on one device")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if orig.shape != dirn.shape:
+        raise TypeError("orig and dirn must have one shape")
+    if dev.type not in ("cpu", "cuda"):
+        raise TypeError(f"no {kernel} kernel for device {dev}")
+    return dev
+
+
+def _check_tables(owner: str, tabs: dict, dev: torch.device) -> None:
+    for name, (tab, dtype) in tabs.items():
+        if not isinstance(tab, torch.Tensor) or tab.device != dev or tab.dtype != dtype:
+            raise TypeError(f"{owner}.{name} must be a {dtype} tensor on {dev}: "
+                            f"call .to(device)")
+        if not tab.is_contiguous():
+            raise ValueError(f"{owner}.{name} must be contiguous")
+
+
+def _check_leaf_rows(tris, leaf_size: int, owner: str) -> None:
+    if tris.dim() != 2 or tris.shape[1] != 128:
+        raise ValueError(f"{owner}.tris must be (rows, 128)")
+    if leaf_size > TRIS_PER_ROW and leaf_size % TRIS_PER_ROW:
+        raise ValueError("leaf_size must be <= 8 or a multiple of 8")
+
+
+def check_treepack(pack, orig: torch.Tensor, dirn: torch.Tensor, kernel: str) -> torch.device:
+    """Rays and a ``TreePack`` uploaded to their device."""
+    dev = check_rays(orig, dirn, kernel)
+    _check_tables("pack", {"nodebox": (pack.nodebox, torch.float32),
+                           "ctrl": (pack.ctrl, torch.int32),
+                           "tris": (pack.tris, torch.float32)}, dev)
+    k = pack.num_nodes
+    if pack.nodebox.shape != (6, k) or pack.ctrl.shape != (2, k):
+        raise ValueError("pack node tables do not match num_nodes")
+    _check_leaf_rows(pack.tris, pack.leaf_size, "pack")
+    return dev
+
+
+def check_wide(accel, orig: torch.Tensor, dirn: torch.Tensor, kernel: str,
+               stack_cap: int) -> torch.device:
+    """Rays and a ``WideBVH`` uploaded to their device, shallow enough for
+    a walk stack of ``stack_cap`` entries (``8 * (max_depth + 2)``)."""
+    dev = check_rays(orig, dirn, kernel)
+    _check_tables("accel", {"cboxes": (accel.cboxes, torch.float32),
+                            "clinks": (accel.clinks, torch.int32),
+                            "tris": (accel.tris, torch.float32)}, dev)
+    w = accel.num_nodes
+    if accel.cboxes.shape != (w, 128) or accel.clinks.shape != (8, w):
+        raise ValueError("accel node tables do not match num_nodes")
+    _check_leaf_rows(accel.tris, accel.leaf_size, "accel")
+    if 8 * (accel.max_depth + 2) > stack_cap:
+        raise ValueError(
+            f"wide depth {accel.max_depth} needs a stack of "
+            f"{8 * (accel.max_depth + 2)} > STACK_CAP {stack_cap}")
+    return dev

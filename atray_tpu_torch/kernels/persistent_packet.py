@@ -27,6 +27,7 @@ import torch
 from atray_tpu_torch.accel.pack import TRI_STRIDE, TRIS_PER_ROW, TreePack
 from atray_tpu_torch.core.intersect import INF
 from atray_tpu_torch.kernels import _build
+from atray_tpu_torch.kernels._checks import check_treepack
 from atray_tpu_torch.kernels._plain import inv_dir, record_hit
 
 COUNTER = _build.COUNTERS["ppacket"]
@@ -34,38 +35,9 @@ COUNTER = _build.COUNTERS["ppacket"]
 Hits = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def _check(pack: TreePack, orig: torch.Tensor, dirn: torch.Tensor) -> torch.device:
-    dev = orig.device
-    for name, x in (("orig", orig), ("dirn", dirn)):
-        if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3 or x.device != dev:
-            raise TypeError(f"{name} must be an (R, 3) float32 tensor on one device")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if orig.shape != dirn.shape:
-        raise TypeError("orig and dirn must have one shape")
-    if dev.type not in ("cpu", "cuda"):
-        raise TypeError(f"no ppacket kernel for device {dev}")
-    tabs = {"nodebox": (pack.nodebox, torch.float32), "ctrl": (pack.ctrl, torch.int32),
-            "tris": (pack.tris, torch.float32)}
-    for name, (tab, dtype) in tabs.items():
-        if not isinstance(tab, torch.Tensor) or tab.device != dev or tab.dtype != dtype:
-            raise TypeError(f"pack.{name} must be a {dtype} tensor on {dev}: "
-                            "call TreePack.to(device)")
-        if not tab.is_contiguous():
-            raise ValueError(f"pack.{name} must be contiguous")
-    k = pack.num_nodes
-    if pack.nodebox.shape != (6, k) or pack.ctrl.shape != (2, k):
-        raise ValueError("pack node tables do not match num_nodes")
-    if pack.tris.dim() != 2 or pack.tris.shape[1] != 128:
-        raise ValueError("pack.tris must be (rows, 128)")
-    if pack.leaf_size > TRIS_PER_ROW and pack.leaf_size % TRIS_PER_ROW:
-        raise ValueError("leaf_size must be <= 8 or a multiple of 8")
-    return dev
-
-
 def ppacket_first_hit(pack: TreePack, orig: torch.Tensor, dirn: torch.Tensor) -> Hits:
     """Nearest hit per ray; see the module docstring."""
-    dev = _check(pack, orig, dirn)
+    dev = check_treepack(pack, orig, dirn, "ppacket")
     if dev.type == "cpu":
         return ppacket_ref(pack, orig, dirn)
     lib = _build.load()

@@ -27,6 +27,7 @@ from atray_tpu_torch.accel.pack import TRI_STRIDE, TRIS_PER_ROW
 from atray_tpu_torch.accel.wide import WideBVH
 from atray_tpu_torch.core.intersect import INF
 from atray_tpu_torch.kernels import _build
+from atray_tpu_torch.kernels._checks import check_wide
 from atray_tpu_torch.kernels._plain import inv_dir, record_hit
 
 STACK_CAP = 128     # per-thread stack entries; ATRAY_EXACT_STACK_CAP in the .cu
@@ -36,42 +37,9 @@ _EMPTY_GUARD = -2147483647   # links <= this are empty slots (INT32_MIN)
 Hits = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def _check(accel: WideBVH, orig: torch.Tensor, dirn: torch.Tensor) -> torch.device:
-    dev = orig.device
-    for name, x in (("orig", orig), ("dirn", dirn)):
-        if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3 or x.device != dev:
-            raise TypeError(f"{name} must be an (R, 3) float32 tensor on one device")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if orig.shape != dirn.shape:
-        raise TypeError("orig and dirn must have one shape")
-    if dev.type not in ("cpu", "cuda"):
-        raise TypeError(f"no wide_exact kernel for device {dev}")
-    tabs = {"cboxes": (accel.cboxes, torch.float32), "clinks": (accel.clinks, torch.int32),
-            "tris": (accel.tris, torch.float32)}
-    for name, (tab, dtype) in tabs.items():
-        if not isinstance(tab, torch.Tensor) or tab.device != dev or tab.dtype != dtype:
-            raise TypeError(f"accel.{name} must be a {dtype} tensor on {dev}: "
-                            "call WideBVH.to(device)")
-        if not tab.is_contiguous():
-            raise ValueError(f"accel.{name} must be contiguous")
-    w = accel.num_nodes
-    if accel.cboxes.shape != (w, 128) or accel.clinks.shape != (8, w):
-        raise ValueError("accel node tables do not match num_nodes")
-    if accel.tris.dim() != 2 or accel.tris.shape[1] != 128:
-        raise ValueError("accel.tris must be (rows, 128)")
-    if accel.leaf_size > TRIS_PER_ROW and accel.leaf_size % TRIS_PER_ROW:
-        raise ValueError("leaf_size must be <= 8 or a multiple of 8")
-    if 8 * (accel.max_depth + 2) > STACK_CAP:
-        raise ValueError(
-            f"wide depth {accel.max_depth} needs a stack of "
-            f"{8 * (accel.max_depth + 2)} > STACK_CAP {STACK_CAP}")
-    return dev
-
-
 def wide_exact_first_hit(accel: WideBVH, orig: torch.Tensor, dirn: torch.Tensor) -> Hits:
     """Nearest hit per ray; see the module docstring."""
-    dev = _check(accel, orig, dirn)
+    dev = check_wide(accel, orig, dirn, "wide_exact", STACK_CAP)
     if dev.type == "cpu":
         return wide_exact_ref(accel, orig, dirn)
     lib = _build.load()

@@ -1,8 +1,9 @@
 """ctypes binding to the native SAH BVH builder.
 
-The port has no copy of the C++ source: it compiles the JAX package's
-``atray_tpu/native/atray_native.cpp`` by path (the file is read, not the
-package imported) with the system C++ compiler into the port's git-ignored
+The port keeps its own copy of the C++ source,
+``atray_tpu_torch/native/atray_native.cpp`` (a copy of the JAX package's
+``atray_tpu/native/atray_native.cpp`` with the same builder), and compiles
+it with the system C++ compiler into the port's git-ignored
 ``atray_tpu_torch/_build/``. The library name carries a hash of the source
 and flags, so an edited source builds a new library and a stale one is
 never loaded.
@@ -20,7 +21,7 @@ from typing import Optional
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(os.path.dirname(_PKG), "atray_tpu", "native", "atray_native.cpp")
+SRC = os.path.join(_PKG, "native", "atray_native.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 _FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 

@@ -11,6 +11,7 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
 2. ``lane_take`` kernel vs ``lane_take_ref`` at N = 4,147,200 (one chunk of
    the slice): pack, unpack and a scattered map with 5% -1, for C = 15, 14
    (the state pack) and 3 (the colour restore); results must be equal;
+   kernel, plain and ``index_select`` (the library yardstick) times;
 3. the slice's host build (scene, 139k-triangle shaded accel), then
    ``wide_shade`` kernel vs ``wide_shade_planes_ref`` on it: 65,536 rays
    (camera primaries and bounce-like rays from their hit points, 10% dead)
@@ -75,7 +76,23 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     mesh at leaf_size 8; then ``render`` at the gradient config with that
     ``HybridAccel`` and with ``make_accel`` (leaf_size 8), timed, the films
     equal but for counted tie pixels (at most 0.05%), ``wide_exact``
-    launched once and ``ppacket`` twice per render, no plain version.
+    launched once and ``ppacket`` twice per render, no plain version;
+13. the four lineage walks (``packet_walk``, ``frustum_walk`` over phase
+    12's ``TreePack``; ``wide_frustum``, ``persistent_wide`` over its leaf-8
+    ``WideBVH``) against their plain versions under phase 7's rules, with
+    the kernels' own visit counts equal to the plain versions', on phase
+    12's 65,536 mixed rays (whose incoherent warps overflow the 8-wide
+    walks' leaf queue) and on 65,553 ragged primaries; then timed at full
+    width on phase 12's 2,073,600 primaries and bounce rays (a 262,144-ray
+    prefix where one launch passes 1 s) beside ``ppacket`` and
+    ``wide_exact``, each with its bound from the per-ray need
+    (``ppacket_ref`` or ``wide_exact_ref`` visits), the ratio of the warp's
+    lockstep work to that need, launches and ptxas resources; the timed
+    outputs are held against ``ppacket`` or ``wide_exact`` on the same
+    rays (phase 7's rules), and ``persistent_wide``, whose warps take
+    several bundles at that width (checked against the grid's warps),
+    against ``wide_frustum`` bit for bit, visits included, and on the
+    primaries against its plain version.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Then a JSON line of per-kernel results (times, launches, bound),
@@ -136,19 +153,25 @@ def _gpu_line() -> str:
     return out[0].strip()
 
 
-def _cuda_ms(fn, reps: int) -> float:
+def _events_ms(fn, reps: int) -> float:
+    """Mean ms of ``reps`` calls of ``fn`` between two CUDA events."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _cuda_ms(fn, reps: int) -> float:
+    """``_events_ms`` after one warm-up call."""
+    fn()
+    return _events_ms(fn, reps)
 
 
 def _host_ms(fn) -> float:
@@ -207,9 +230,16 @@ def phase_lane_take(dev, gpu):
                 raise AssertionError(f"lane_take != lane_take_ref (C={c}, {name})")
             ms = _cuda_ms(lambda: lane_take(cols, idx), 20)
             plain_ms = _cuda_ms(lambda: lane_take_ref(cols, idx), 5)
-            res[(c, name)] = (ms, plain_ms)
+            # the library yardstick: one index_select of the planes with a
+            # zero lane appended, to which the -1 entries point
+            cols_z = torch.cat([cols, torch.zeros_like(cols[:, :1])], 1)
+            idx_z = torch.where(idx >= 0, idx, n).long()
+            if not torch.equal(torch.index_select(cols_z, 1, idx_z), want):
+                raise AssertionError(f"index_select != lane_take_ref (C={c}, {name})")
+            lib_ms = _cuda_ms(lambda: torch.index_select(cols_z, 1, idx_z), 20)
+            res[(c, name)] = (ms, plain_ms, lib_ms)
             print(f"phase 2 lane_take C={c} N={n} {name}: equal, kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms [{gpu}]")
+                  f"plain {plain_ms:.4f} ms, index_select {lib_ms:.4f} ms [{gpu}]")
     return res
 
 
@@ -1002,7 +1032,7 @@ def _packet_compare(pack, o, d, label, gpu):
           f"{int((~same).sum())} (coincident faces), max |dt| {max_dt:.3g}, max u/v err "
           f"{uverr:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms "
           f"by {bound[1]} ({visits['nodes']} node visits, {visits['records']} records) [{gpu}]")
-    return max(max_dt, uverr), ms, plain_ms, bound
+    return max(max_dt, uverr), ms, plain_ms, bound, visits
 
 
 def phase_ppacket(scene, scene_host, shaded, dev, gpu):
@@ -1039,14 +1069,17 @@ def phase_ppacket(scene, scene_host, shaded, dev, gpu):
     pick = torch.from_numpy(rng.choice(o.shape[0], 32_768, replace=False)).to(dev)
     o, d = o[pick], d[pick]
     bo, bd = hemisphere(o, d, rng)
-    err1, _, _, _ = _packet_compare(hybrid.pack, torch.cat([o, bo]).contiguous(),
-                                    torch.cat([d, bd]).contiguous(), "65536 mixed", gpu)
+    sets = {"65536 mixed": (torch.cat([o, bo]).contiguous(), torch.cat([d, bd]).contiguous())}
+    err1, _, _, _, _ = _packet_compare(hybrid.pack, *sets["65536 mixed"], "65536 mixed", gpu)
     o, d = camera_rays(_bwd_camera(), 960, 540, 4, device=dev)
     o = to_tile_order(o, 960, 540, 4).contiguous()
     d = to_tile_order(d, 960, 540, 4).contiguous()
-    err2, _, _, _ = _packet_compare(hybrid.pack, o, d, "chunk primaries", gpu)
+    err2, pr_ms, _, _, pr_need = _packet_compare(hybrid.pack, o, d, "chunk primaries", gpu)
     bo, bd = hemisphere(o, d, rng)
-    err3, ms, plain_ms, bound = _packet_compare(hybrid.pack, bo, bd, "chunk bounce", gpu)
+    err3, ms, plain_ms, bound, bo_need = _packet_compare(hybrid.pack, bo, bd, "chunk bounce", gpu)
+    sets["chunk primaries"], sets["chunk bounce"] = (o, d), (bo, bd)
+    walks = {"pack": hybrid.pack, "wide": wide, "sets": sets,
+             "ppacket": {"chunk primaries": (pr_ms, pr_need), "chunk bounce": (ms, bo_need)}}
 
     settings = RenderSettings(resolution=(960, 540), samples_per_pixel=4, bounce_limit=3,
                               ray_chunk=0)
@@ -1078,13 +1111,246 @@ def phase_ppacket(scene, scene_host, shaded, dev, gpu):
           f"wide_exact {h_counts['wide_exact'][0]}, ppacket {h_counts['ppacket'][0]}, plain "
           f"calls 0; films {'torch.equal' if n_px == 0 else f'differ on {n_px} pixels (ties)'} "
           f"[{gpu}]")
-    return h_counts, max(err1, err2, err3), ms, plain_ms, bound
+    return h_counts, max(err1, err2, err3), ms, plain_ms, bound, walks
 
 
-def _entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms):
+LINEAGE_CUT = 262_144     # rays timed instead of a set whose one launch passes 1 s
+LINEAGE = (               # (counter, table, TPU kernel it replaces)
+    ("packet_walk", "pack", "atray_tpu/kernels/traverse_pallas.py:137"),
+    ("frustum_walk", "pack", "atray_tpu/kernels/frustum_pallas.py:57"),
+    ("wide_frustum", "wide", "atray_tpu/kernels/wide_pallas.py:48"),
+    ("persistent_wide", "wide", "atray_tpu/kernels/persistent_pallas.py:37"),
+)
+
+
+def _lineage_fns():
+    """name -> (public entry point, its diagnostic twin that counts the
+    walk's own visits, plain version)."""
+    from atray_tpu_torch.kernels import frustum_walk, packet_walk, persistent_wide, wide_frustum
+
+    return {"packet_walk": (packet_walk.packet_first_hit, packet_walk._first_hit,
+                            packet_walk.packet_ref),
+            "frustum_walk": (frustum_walk.frustum_first_hit, frustum_walk._first_hit,
+                             frustum_walk.frustum_ref),
+            "wide_frustum": (wide_frustum.wide_first_hit, wide_frustum._first_hit,
+                             wide_frustum.wide_ref),
+            "persistent_wide": (persistent_wide.persistent_first_hit, persistent_wide._first_hit,
+                                persistent_wide.persistent_ref)}
+
+
+def _ptxas(name: str) -> str:
+    """The ``-Xptxas -v`` resource line of ``<name>_kernel`` in this
+    process's build."""
+    from atray_tpu_torch.kernels import _build
+
+    lines = _build._loaded.log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and f"{name}_kernel" in line:
+            for nxt in lines[i + 1:]:
+                if "registers" in nxt:
+                    return nxt.split(":", 1)[-1].strip()
+    return "not in this process's build log"
+
+
+def _lineage_ops(kind: str, v) -> float:
+    per_node = 8 * OPS_PER_CHILD_BOX if kind == "wide" else OPS_PER_NODE
+    return v["nodes"] * per_node + v["records"] * OPS_PER_RECORD
+
+
+def _hold(got, want, what):
+    """Phase 7's rules for hits ``got`` against ``want`` (plain version or
+    per-ray kernel): t within 1 ulp, u and v within 1e-6 where the ids
+    agree, a differing id only where ``want`` hits (a coincident face).
+    Returns (max |dt| on hits, max u/v error, ids that differ, hits)."""
+    import numpy as np
+
+    (gt, gu, gv, gi), (wt, wu, wv, wi) = ([x.cpu().numpy() for x in r] for r in (got, want))
+    hit = wi >= 0
+    dt = np.abs(gt - wt)
+    if np.any(dt > np.spacing(np.abs(wt).astype(np.float32))):
+        raise AssertionError(f"{what}: t differs by more than 1 ulp")
+    same = gi == wi
+    if np.any(~same & ~hit):
+        raise AssertionError(f"{what}: a miss of the reference is a hit")
+    uverr = max(float(np.abs(gu - wu)[same].max(initial=0.0)),
+                float(np.abs(gv - wv)[same].max(initial=0.0)))
+    if uverr > 1e-6:
+        raise AssertionError(f"{what}: u/v error {uverr}")
+    return (float(dt[hit].max()) if hit.any() else 0.0), uverr, int((~same).sum()), int(hit.sum())
+
+
+def _lineage_compare(name, acc, o, d, label, gpu):
+    """Lineage kernel vs its plain version under phase 7's rules, and the
+    kernel's own visit counts equal to the plain version's. Returns (max
+    error, plain ms, visits)."""
+    import torch
+
+    _, counted, ref = _lineage_fns()[name]
+    kv, pv = {}, {}
+    got = counted(acc, o, d, visits=kv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ref(acc, o, d, visits=pv)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    max_dt, uverr, ndiff, nhit = _hold(got, want, f"{name} {label} vs plain")
+    if kv != pv:
+        raise AssertionError(f"{name} {label}: kernel visits {kv} != plain visits {pv}")
+    drained = (f", {kv['drain_warps']} of {-(-o.shape[0] // 32)} warps drained the leaf queue "
+               f"in mid-walk ({kv['drains']} drains)" if "drains" in kv else "")
+    print(f"phase 13 {name} {label}: {o.shape[0]} rays ({nhit} hits): ids differ on {ndiff} "
+          f"(coincident faces), max |dt| {max_dt:.3g}, max u/v err {uverr:.3g}, kernel visits "
+          f"== plain visits ({kv['nodes']} nodes, {kv['records']} records){drained}; plain "
+          f"{plain_ms:.1f} ms [{gpu}]")
+    return max(max_dt, uverr), plain_ms, kv
+
+
+PLAIN_PIECE = 131_072     # rays per call of the plain version at full width
+
+
+def _persistent_at_width(wide, o, d, got, work, same, same_work, label, gpu):
+    """``persistent_wide`` at a timed shape, where warps take several
+    bundles: the set must have more bundles than the grid has warps, the
+    hits and visits must equal ``wide_frustum``'s (one bundle a warp) bit
+    for bit, and on the primaries the plain version's too (in pieces of
+    whole bundles: bundles are independent)."""
+    import torch
+
+    from atray_tpu_torch.kernels.persistent_wide import grid_warps, persistent_ref
+
+    bundles, warps = -(-o.shape[0] // 32), grid_warps(o.device)
+    if bundles <= warps:
+        raise AssertionError(f"persistent_wide {label}: {bundles} bundles for {warps} warps")
+    if not all(torch.equal(a, b) for a, b in zip(got, same)) or work != same_work:
+        raise AssertionError(f"persistent_wide {label}: != wide_frustum's hits or visits")
+    msg = ""
+    if label == "chunk primaries":
+        pv, parts = {}, []
+        t0 = time.perf_counter()
+        for s in range(0, o.shape[0], PLAIN_PIECE):
+            parts.append(persistent_ref(wide, o[s:s + PLAIN_PIECE], d[s:s + PLAIN_PIECE], pv))
+        want = tuple(torch.cat(x) for x in zip(*parts))
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        max_dt, uverr, ndiff, _ = _hold(got, want, f"persistent_wide {label} vs plain")
+        if pv != work:
+            raise AssertionError(f"persistent_wide {label}: visits {work} != plain {pv}")
+        msg = (f"; == plain version (ids differ on {ndiff}, max |dt| {max_dt:.3g}, max u/v err "
+               f"{uverr:.3g}, visits equal; plain {plain_s:.1f} s)")
+    print(f"phase 13 persistent_wide {label}: {o.shape[0]} rays, {bundles} bundles for "
+          f"{warps} resident warps; hits and visits == wide_frustum's bit for bit{msg} [{gpu}]")
+
+
+def phase_lineage(walks, gpu):
+    """Phase 13: the four lineage walks against their plain versions on
+    phase 12's mixed rays, a ragged set and (the 8-wide ones) warps that
+    overflow the leaf queue; then timed at full width on the gradient
+    config's primaries and bounce rays beside ``ppacket`` and ``wide_exact``
+    on the same tables, with bounds from the per-ray need, and held at that
+    shape against the per-ray kernels (and ``persistent_wide``, whose warps
+    loop there, against ``wide_frustum`` and its plain version)."""
+    import torch
+
+    from atray_tpu_torch.kernels.persistent_packet import ppacket_first_hit, ppacket_ref
+    from atray_tpu_torch.kernels.wide_exact import wide_exact_first_hit, wide_exact_ref
+
+    t_phase = time.perf_counter()
+    tabs = {"pack": walks["pack"], "wide": walks["wide"]}
+    sets = walks["sets"]
+    po, pd = sets["chunk primaries"]
+    # the ragged set: the 65,553 consecutive primaries (render order) with
+    # the most hits, so that its warps cross the dragon
+    width = 65_553
+    hits = torch.cumsum((wide_exact_first_hit(tabs["wide"], po, pd)[3] >= 0).long(), 0)
+    start = int(torch.argmax(hits[width:] - hits[:-width])) + 1
+    ragged = (po[start:start + width].contiguous(), pd[start:start + width].contiguous())
+    res = {}
+    for name, kind, _ in LINEAGE:
+        acc = tabs[kind]
+        err1, plain_ms, kv = _lineage_compare(name, acc, *sets["65536 mixed"], "65536 mixed", gpu)
+        if kind == "wide" and not kv["drain_warps"]:
+            raise AssertionError(f"{name}: no warp of the mixed set drained the leaf queue")
+        err2, _, _ = _lineage_compare(name, acc, *ragged, f"65553 ragged primaries from {start}",
+                                      gpu)
+        res[name] = {"err": max(err1, err2), "plain_ms": plain_ms,
+                     "plain_rays": sets["65536 mixed"][0].shape[0]}
+
+    # full width: the per-ray need of each set, then the lineage kernels
+    need_fn = {"pack": ppacket_ref, "wide": wide_exact_ref}
+    timed, outs = {}, {}
+    _reset_counts()
+    for label in ("chunk primaries", "chunk bounce"):
+        o, d = sets[label]
+        we_ms = _cuda_ms(lambda: wide_exact_first_hit(tabs["wide"], o, d), 10)
+        print(f"phase 13 lineup {label}: {o.shape[0]} rays; ppacket {walks['ppacket'][label][0]:.4f} "
+              f"ms (phase 12), wide_exact on the leaf-8 WideBVH {we_ms:.4f} ms [{gpu}]")
+        for name, kind, _ in LINEAGE:
+            entry, counted, _ = _lineage_fns()[name]
+            acc = tabs[kind]
+            oo, dd, cut = o, d, ""
+            one = _events_ms(lambda: entry(acc, oo, dd), 1)
+            if one > 1000.0:
+                oo, dd = o[:LINEAGE_CUT].contiguous(), d[:LINEAGE_CUT].contiguous()
+                cut = f" (one launch on all {o.shape[0]} rays took {one:.1f} ms: cut)"
+                one = _events_ms(lambda: entry(acc, oo, dd), 1)
+            reps = max(1, min(20, int(1000.0 / max(one, 1e-3))))
+            ms = one if reps == 1 else _events_ms(lambda: entry(acc, oo, dd), reps)
+            work = {}
+            outs[(name, label)] = (counted(acc, oo, dd, visits=work), work, oo, dd)
+            need = {}
+            if cut or kind == "wide":
+                need_fn[kind](acc, oo, dd, visits=need)
+            else:
+                need = walks["ppacket"][label][1]
+            tab = sum(getattr(acc, k).nbytes for k in (
+                ("nodebox", "ctrl", "tris") if kind == "pack" else ("cboxes", "clinks", "tris")))
+            io = oo.nbytes + dd.nbytes + 4 * 4 * oo.shape[0]
+            bound = _bound(io + tab, _lineage_ops(kind, need))
+            ratio = _lineage_ops(kind, work) / max(_lineage_ops(kind, need), 1.0)
+            timed[(name, label)] = (ms, bound, oo.shape[0])
+            print(f"phase 13 {name} {label}: {oo.shape[0]} rays{cut}, kernel {ms:.4f} ms (mean of "
+                  f"{reps}), bound {bound[0]:.4f} ms by {bound[1]} (per-ray need "
+                  f"{need['nodes']} nodes, {need['records']} records); the warp's own work "
+                  f"{work['nodes']} nodes, {work['records']} records, {ratio:.3f}x the need in "
+                  f"operations [{gpu}]")
+    counts = _read_counts()
+    for name, _, _ in LINEAGE:
+        launches, plain = counts[name]
+        if launches <= 0 or plain:
+            raise AssertionError(f"{name} at full width: {launches} launches, {plain} plain calls")
+        ms, bound, rays = timed[(name, "chunk bounce")]
+        res[name].update(launches=launches, ms=ms, bound=bound, rays=rays)
+        print(f"phase 13 {name}: {launches} launches at full width, plain calls 0; ptxas: "
+              f"{_ptxas(name)}")
+
+    # the timed outputs against the per-ray kernels (which phases 7 and 12
+    # hold to their plain versions at these shapes) under phase 7's rules
+    per_ray = {"pack": ppacket_first_hit, "wide": wide_exact_first_hit}
+    for label in ("chunk primaries", "chunk bounce"):
+        for name, kind, _ in LINEAGE:
+            got, work, oo, dd = outs[(name, label)]
+            max_dt, uverr, ndiff, nhit = _hold(got, per_ray[kind](tabs[kind], oo, dd),
+                                               f"{name} {label} vs the per-ray kernel")
+            res[name]["err"] = max(res[name]["err"], max_dt, uverr)
+            print(f"phase 13 {name} {label}: {oo.shape[0]} rays ({nhit} hits) == "
+                  f"{'ppacket' if kind == 'pack' else 'wide_exact'} but for {ndiff} ids "
+                  f"(coincident faces), max |dt| {max_dt:.3g}, max u/v err {uverr:.3g} [{gpu}]")
+        got, work, oo, dd = outs[("persistent_wide", label)]
+        same, same_work, so, _ = outs[("wide_frustum", label)]
+        if so.shape != oo.shape:
+            raise AssertionError(f"{label}: wide_frustum and persistent_wide timed other rays")
+        _persistent_at_width(tabs["wide"], oo, dd, got, work, same, same_work, label, gpu)
+    print(f"phase 13 lineage walks: {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def _entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms, **rays):
+    """One entry of the ``kernels`` line; the lineage walks add ``rays``
+    (the rays of ``ms`` and ``bound_ms``) and ``plain_rays`` (of
+    ``plain_ms``), since their timed set is cut."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms, **rays}
 
 
 def main() -> int:
@@ -1136,9 +1402,11 @@ def main() -> int:
     pk = phase_pair_kernels(accel, dev, gpu)
     p_counts = phase_pair_slice(scene, accel, walk_film, walk_frames, dev, gpu)
     del walk_film
-    h_counts, pp_err, pp_ms, pp_plain, pp_bound = phase_ppacket(scene, scene_host, accel, dev, gpu)
+    h_counts, pp_err, pp_ms, pp_plain, pp_bound, walks = phase_ppacket(
+        scene, scene_host, accel, dev, gpu)
+    lineage = phase_lineage(walks, gpu)
 
-    lt_ms, lt_plain = lt[(14, "pack")]
+    lt_ms, lt_plain, lt_lib = lt[(14, "pack")]
     n_chunk = 4_147_200
     ls_ms, ls_plain, ls_lib, ls_bound, _ = ls[(12, 2_073_600, "pack")]
     ls_err = max(v[4] for v in ls.values())
@@ -1148,7 +1416,7 @@ def main() -> int:
                ws_ms, ws_plain, ws_bound, None),
         _entry("lane_take", "atray_tpu_torch/csrc/lane_take.cu",
                "atray_tpu/kernels/lane_pack.py:202", counts["lane_take"][0], 0.0,
-               lt_ms, lt_plain, _bound((2 * 14 + 1) * 4 * n_chunk), None),
+               lt_ms, lt_plain, _bound((2 * 14 + 1) * 4 * n_chunk), lt_lib),
         _entry("lane_scatter", "atray_tpu_torch/csrc/lane_scatter.cu",
                "atray_tpu/kernels/lane_pack.py:632", g_counts["lane_scatter"][0], ls_err,
                ls_ms, ls_plain, ls_bound, ls_lib),
@@ -1164,6 +1432,12 @@ def main() -> int:
         _entry("ppacket", "atray_tpu_torch/csrc/ppacket.cu",
                "atray_tpu/kernels/persistent_packet.py:42", h_counts["ppacket"][0], pp_err,
                pp_ms, pp_plain, pp_bound, None),
+    ] + [
+        _entry(name, f"atray_tpu_torch/csrc/{name}.cu", replaces, lineage[name]["launches"],
+               lineage[name]["err"], lineage[name]["ms"], lineage[name]["plain_ms"],
+               lineage[name]["bound"], None, rays=lineage[name]["rays"],
+               plain_rays=lineage[name]["plain_rays"])
+        for name, _, replaces in LINEAGE
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

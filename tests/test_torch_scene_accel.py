@@ -1,9 +1,13 @@
 """PyTorch port, host side: procedural meshes, transforms, BVH and shaded
 accel tables against the JAX package (array- and bit-equal)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
+
+import atray_tpu_torch
 
 torch.set_num_threads(2)
 
@@ -68,6 +72,15 @@ def test_shaded_accel_tables_bit_equal(name, args, backend):
     np.testing.assert_array_equal(np.asarray(ref.build_vertices), port.build_vertices)
     for f in ("leaf_size", "num_nodes", "max_depth", "num_treelets", "leaves_per_treelet"):
         assert getattr(ref, f) == getattr(port, f), f
+
+
+def test_native_builder_compiles_the_ports_own_source():
+    from atray_tpu_torch.native import bindings
+
+    port_dir = os.path.dirname(os.path.abspath(atray_tpu_torch.__file__))
+    src = os.path.abspath(bindings.SRC)
+    assert os.path.commonpath([src, port_dir]) == port_dir
+    assert os.path.isfile(src) and src.endswith(".cpp")
 
 
 def test_native_and_numpy_builds_give_same_hits(rng):
