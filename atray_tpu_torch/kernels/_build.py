@@ -75,6 +75,15 @@ _SIGNATURES = {
         + [ctypes.c_int, _P]
     ),
     "atray_persistent_wide_grid": [],
+    # the probes of the lane routing (``probes/``): operands, output, sizes, stream
+    "atray_probe_dot": [_P, _P, _P] + [ctypes.c_int] * 4 + [_P],
+    "atray_probe_dot_bf16": [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
+    "atray_probe_route_loop": [_P] * 4 + [ctypes.c_int] * 2 + [_P],
+    "atray_probe_route_dyn": [_P] * 5,
+    "atray_probe_route_nested": [_P] * 5 + [ctypes.c_int] * 3 + [_P],
+    "atray_probe_route_bigread": [_P, _P, ctypes.c_int, _P, _P, _P, ctypes.c_int, _P],
+    "atray_probe_take_rm": [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
+    "atray_probe_stream_take": [_P, _P, _P] + [ctypes.c_int] * 3 + [_P],
 }
 
 
@@ -95,7 +104,12 @@ COUNTERS: Dict[str, Counter] = {
     name: Counter() for name in ("wide_shade", "lane_take", "lane_scatter", "wide_exact",
                                  "treelet_phase_a", "treelet_phase_b", "ppacket",
                                  "packet_walk", "frustum_walk", "wide_frustum",
-                                 "persistent_wide")
+                                 "persistent_wide",
+                                 # the probes, one per TPU probe kernel (P1-P11)
+                                 "probe_dot_t", "probe_dot_n", "probe_dot_bf16", "probe_dot_k",
+                                 "probe_dot_indep", "probe_route_loop", "probe_route_dyn",
+                                 "probe_route_nested", "probe_route_bigread", "probe_take_rm",
+                                 "probe_stream_take")
 }
 
 

@@ -92,7 +92,18 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     rays (phase 7's rules), and ``persistent_wide``, whose warps take
     several bundles at that width (checked against the grid's warps),
     against ``wide_frustum`` bit for bit, visits included, and on the
-    primaries against its plain version.
+    primaries against its plain version;
+14. the lane-routing probes (``atray_tpu_torch/probes``, P1-P11, the TPU
+    kernels of ``scripts/probe_r18.py``-``probe_r22.py``): each kernel
+    against its plain version (``check()`` of each probe module: the
+    float32 products within rtol 1e-5, atol 1e-5 x reps at reps cut to 64
+    or 8, everything else equal; the route probes at the scripts' trip
+    counts, the takes at 2,073,600 lanes x 14 planes on the maps of every
+    occupancy and a scattered one); then, counted, each probe's table at
+    the script's shapes and reps, every line with its bound on the card and
+    (for the one-block kernels P1-P9) on one SM; then the plain version's
+    and the library call's time (``torch.matmul`` for P1-P5,
+    ``index_select`` for P10-P11) at one variant of each.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Then a JSON line of per-kernel results (times, launches, bound),
@@ -1344,10 +1355,131 @@ def phase_lineage(walks, gpu):
     return res
 
 
+# phase 14: counter name, CUDA source, the TPU kernel it replaces, and the
+# label of the variant its ``kernels`` entry reports
+PROBES = (
+    ("probe_dot_t", "probe_dot.cu", "scripts/probe_r18.py:22", "M=14"),
+    ("probe_dot_n", "probe_dot.cu", "scripts/probe_r18.py:31", "M=14"),
+    ("probe_dot_bf16", "probe_dot.cu", "scripts/probe_r18.py:82", "M=14"),
+    ("probe_dot_k", "probe_dot.cu", "scripts/probe_r19.py:25", "M=14 K=512"),
+    ("probe_dot_indep", "probe_dot.cu", "scripts/probe_r19.py:34", "M=14 K=512"),
+    ("probe_route_loop", "probe_route.cu", "scripts/probe_r20.py:34", "build+dot x1"),
+    ("probe_route_dyn", "probe_route.cu", "scripts/probe_r20.py:118", "dyn"),
+    ("probe_route_nested", "probe_route.cu", "scripts/probe_r20.py:163",
+     "inner<=7 when_store=1 carry6=1"),
+    ("probe_route_bigread", "probe_route.cu", "scripts/probe_r20.py:235", "store_dyn=1"),
+    ("probe_take_rm", "probe_take_rm.cu", "scripts/probe_r21.py:26", "occ=0.15"),
+    ("probe_stream_take", "probe_stream_take.cu", "scripts/probe_r22.py:26", "occ=0.15 full"),
+)
+
+
+def _probe_plain_and_library(dev):
+    """name -> (plain ms, library ms or None) at each entry's variant. The
+    library call computes the same function in one call: the reps-fold sum
+    of products as one product over the reps-fold contraction (a tiled
+    along K, b along K), and the takes as one ``index_select`` with a zero
+    word appended, to which dead lanes point."""
+    import numpy as np
+    import torch
+
+    from atray_tpu_torch.probes import (
+        _timing, probe_r18, probe_r19, probe_r20, probe_r21, probe_r22)
+
+    ms = lambda fn, reps=1: _timing.events_ms(fn, reps, warm=False)  # noqa: E731
+    res = {}
+    reps = probe_r18.REPS
+    a, b = probe_r18.inputs(dev)
+    wide_a, wide_bt, wide_b = a.repeat(1, reps), b.repeat(1, reps), b.repeat(reps, 1)
+    res["probe_dot_t"] = (ms(lambda: probe_r18.dot_ref(a, b, reps, "probe_dot_t", True)),
+                          ms(lambda: torch.matmul(wide_a, wide_bt.t()), 3))
+    res["probe_dot_n"] = (ms(lambda: probe_r18.dot_ref(a, b, reps)),
+                          ms(lambda: torch.matmul(wide_a, wide_b), 3))
+    del wide_a, wide_bt, wide_b
+    ha, hb = probe_r18.bf16_inputs(dev, 14, np.random.default_rng(1))
+    wide_a, wide_b = ha.repeat(1, reps), hb.repeat(reps, 1)
+    res["probe_dot_bf16"] = (ms(lambda: probe_r18.dot_ref(ha, hb, reps, "probe_dot_bf16")),
+                             ms(lambda: torch.matmul(wide_a, wide_b), 3))
+    del wide_a, wide_b
+    a, b = probe_r19.inputs(dev, 14, probe_r19.INDEP_K, np.random.default_rng(0), 0.002)
+    wide_a, wide_b = a.repeat(1, reps), b.repeat(reps, 1)
+    lib = ms(lambda: torch.matmul(wide_a, wide_b), 3)
+    del wide_a, wide_b
+    res["probe_dot_k"] = (ms(lambda: probe_r19.dot_k_ref(a, b, reps)), lib)
+    res["probe_dot_indep"] = (ms(lambda: probe_r19.dot_indep_ref(a, b, reps)), lib)
+    win, rel = probe_r20.inputs(dev)
+    n = probe_r20.trips(dev, probe_r20.STEPS)
+    res["probe_route_loop"] = (ms(lambda: probe_r20.route_loop_ref(n, win, rel, "build+dot", 1)),
+                               None)
+    res["probe_route_dyn"] = (ms(lambda: probe_r20.route_dyn_ref(n, win, rel)), None)
+    n = probe_r20.trips(dev, probe_r20.OUTER_ROWS)
+    res["probe_route_nested"] = (ms(lambda: probe_r20.route_nested_ref(n, win, rel, 7, True, True)),
+                                 None)
+    idx = probe_r20.bigread_idx(dev)
+    res["probe_route_bigread"] = (ms(lambda: probe_r20.route_bigread_ref(n, idx, win, True)), None)
+
+    rng = np.random.default_rng(0)
+    rows, c, lane = probe_r21.ROWS, probe_r21.C, probe_r21.LANE
+    base = torch.from_numpy(rng.normal(size=(rows, c, lane)).astype(np.float32)).to(dev)
+    idx = probe_r21.occupancy_map(dev, 0.15, rng)
+    ok = idx >= 0
+    s = torch.where(ok, idx, 0).long()
+    src = ((s // lane) * c * lane + s % lane).view(rows, 1, lane) + \
+        (torch.arange(c, device=dev) * lane).view(1, c, 1)
+    flat = torch.cat([base.reshape(-1), base.new_zeros(1)])
+    fidx = torch.where(ok.view(rows, 1, lane), src, flat.numel() - 1).reshape(-1)
+    if not torch.equal(torch.index_select(flat, 0, fidx).view(rows, c, lane),
+                       probe_r21.take_rm_ref(base, idx)):
+        raise AssertionError("phase 14: index_select != the ray-major take")
+    res["probe_take_rm"] = (ms(lambda: probe_r21.take_rm_ref(base, idx), 3),
+                            ms(lambda: torch.index_select(flat, 0, fidx), 10))
+    del flat, fidx, src
+    planes = base.permute(1, 0, 2).contiguous()
+    cols_z = torch.cat([planes.reshape(c, -1), planes.new_zeros(c, 1)], 1)
+    idx_z = torch.where(ok, idx, rows * lane).long()
+    res["probe_stream_take"] = (ms(lambda: probe_r22.stream_take_ref(planes, idx), 3),
+                                ms(lambda: torch.index_select(cols_z, 1, idx_z), 10))
+    return res
+
+
+def phase_probes(dev, gpu):
+    """Phase 14: the probe kernels against their plain versions, then each
+    probe's table (the counted run), then plain and library times."""
+    from atray_tpu_torch.probes import probe_r18, probe_r19, probe_r20, probe_r21, probe_r22
+
+    t_phase = time.perf_counter()
+    mods = (probe_r18, probe_r19, probe_r20, probe_r21, probe_r22)
+    say = lambda line: print(f"phase 14 {line} [{gpu}]")  # noqa: E731
+    errs = {}
+    for mod in mods:
+        errs.update(mod.check(dev, out=say))
+    t_check = time.perf_counter() - t_phase
+    _reset_counts()
+    timed = [t for mod in mods for t in mod.table(dev, out=say)]
+    counts = _read_counts()
+    res = {}
+    for name, _, _, label in PROBES:
+        launches = counts[name][0]
+        if launches <= 0:
+            raise AssertionError(f"{name}: no launch in the probes' run")
+        (t,) = [t for t in timed if t.kernel == name and t.label == label]
+        res[name] = {"launches": launches, "err": errs[name], "t": t}
+    t_table = time.perf_counter() - t_phase - t_check
+    for name, (plain_ms, lib_ms) in _probe_plain_and_library(dev).items():
+        res[name].update(plain_ms=plain_ms, library_ms=lib_ms)
+        t = res[name]["t"]
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        say(f"{name} {t.label}: kernel {t.ms:.4f} ms, {t.bound_text()}, plain {plain_ms:.4f} ms, "
+            f"library {lib}, {res[name]['launches']} launches in the probes' run")
+    print(f"phase 14 probes: checks {t_check:.1f} s, tables {t_table:.1f} s, all "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def _entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms, **rays):
     """One entry of the ``kernels`` line; the lineage walks add ``rays``
     (the rays of ``ms`` and ``bound_ms``) and ``plain_rays`` (of
-    ``plain_ms``), since their timed set is cut."""
+    ``plain_ms``), since their timed set is cut; the probes add the
+    ``variant`` timed and, for one-block kernels, ``one_sm_bound_ms``."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms, **rays}
@@ -1405,6 +1537,7 @@ def main() -> int:
     h_counts, pp_err, pp_ms, pp_plain, pp_bound, walks = phase_ppacket(
         scene, scene_host, accel, dev, gpu)
     lineage = phase_lineage(walks, gpu)
+    probes = phase_probes(dev, gpu)
 
     lt_ms, lt_plain, lt_lib = lt[(14, "pack")]
     n_chunk = 4_147_200
@@ -1438,6 +1571,14 @@ def main() -> int:
                lineage[name]["bound"], None, rays=lineage[name]["rays"],
                plain_rays=lineage[name]["plain_rays"])
         for name, _, replaces in LINEAGE
+    ] + [
+        _entry(name, f"atray_tpu_torch/csrc/{source}", replaces, probes[name]["launches"],
+               probes[name]["err"], probes[name]["t"].ms, probes[name]["plain_ms"],
+               (probes[name]["t"].bound_ms, probes[name]["t"].bound_by),
+               probes[name]["library_ms"], variant=probes[name]["t"].label,
+               **({"one_sm_bound_ms": probes[name]["t"].bound_ms * 132}
+                  if probes[name]["t"].one_block else {}))
+        for name, source, replaces, _ in PROBES
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,7 @@ from atray_tpu.config import KDTreeConfig as JaxKDTreeConfig  # noqa: E402
 from atray_tpu.kernels.frustum_pallas import frustum_first_hit as jax_frustum  # noqa: E402
 from atray_tpu.kernels.traverse_pallas import pack_bvh as jax_pack_bvh  # noqa: E402
 from atray_tpu.kernels.traverse_pallas import pallas_first_hit as jax_packet  # noqa: E402
+from test_torch_render import jax_builder  # noqa: E402
 
 from atray_tpu_torch.accel.bvh import build_bvh  # noqa: E402
 from atray_tpu_torch.accel.pack import pack_bvh  # noqa: E402
@@ -78,7 +79,8 @@ def _assert_like_reference(got, ref, tie_ok=0):
 
 def _tables(leaf_size):
     mesh = _mesh()
-    bvh = build_bvh(mesh.vertices, mesh.faces, KDTreeConfig(leaf_size=leaf_size))
+    bvh = build_bvh(mesh.vertices, mesh.faces, KDTreeConfig(leaf_size=leaf_size),
+                    backend=jax_builder())
     jpack = jax_pack_bvh(jax_build_bvh(mesh.vertices, mesh.faces,
                                        JaxKDTreeConfig(leaf_size=leaf_size)))
     return bvh, pack_bvh(bvh).to("cpu"), jpack

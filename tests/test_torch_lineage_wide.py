@@ -21,6 +21,7 @@ from atray_tpu.kernels.persistent_pallas import persistent_first_hit as jax_pers
 from atray_tpu.kernels.wide_pallas import wide_first_hit as jax_wide  # noqa: E402
 from test_torch_lineage_treepack import (  # noqa: E402
     _assert_like_reference, _axis_aligned_rays, _mesh, lineage_rays)
+from test_torch_render import pin_port_builder  # noqa: E402
 
 from atray_tpu_torch.accel.bvh import build_bvh  # noqa: E402
 from atray_tpu_torch.accel.traverse import bvh_first_hit  # noqa: E402
@@ -41,8 +42,10 @@ COUNTED = {"wide": wide_frustum._first_hit, "persistent": persistent_wide._first
 def _tables(leaf_size):
     mesh = _mesh()
     cfg = KDTreeConfig(leaf_size=leaf_size)
-    return (build_bvh(mesh.vertices, mesh.faces, cfg),
-            make_accel(mesh.vertices, mesh.faces, cfg).to("cpu"),
+    with pytest.MonkeyPatch.context() as mp:
+        backend = pin_port_builder(mp)
+        wide = make_accel(mesh.vertices, mesh.faces, cfg).to("cpu")
+    return (build_bvh(mesh.vertices, mesh.faces, cfg, backend=backend), wide,
             jax_wide_from_mesh(mesh.vertices, mesh.faces, JaxKDTreeConfig(leaf_size=leaf_size)))
 
 

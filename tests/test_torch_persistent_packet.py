@@ -27,7 +27,7 @@ from atray_tpu.scene import build_scene as jax_build_scene  # noqa: E402
 from atray_tpu.scene import procedural as jax_procedural  # noqa: E402
 from atray_tpu.scene.data import make_materials as jax_make_materials  # noqa: E402
 from atray_tpu.scene.transforms import translate as jax_translate  # noqa: E402
-from test_torch_render import _accel_fields, _tree  # noqa: E402
+from test_torch_render import _accel_fields, _tree, jax_builder  # noqa: E402
 
 from atray_tpu_torch.accel.bvh import build_bvh  # noqa: E402
 from atray_tpu_torch.accel.pack import pack_bvh  # noqa: E402
@@ -59,11 +59,13 @@ def _random_rays(rng, n):
 
 @pytest.mark.parametrize("leaf_size", [4, 8, 16])
 def test_treepack_tables_bit_equal(leaf_size):
+    backend = jax_builder()
     mesh = procedural.dragon_proxy(2000)
     ref_mesh = jax_procedural.dragon_proxy(2000)
     ref = jax_pack_bvh(jax_build_bvh(ref_mesh.vertices, ref_mesh.faces,
                                      JaxKDTreeConfig(leaf_size=leaf_size)))
-    got = pack_bvh(build_bvh(mesh.vertices, mesh.faces, KDTreeConfig(leaf_size=leaf_size)))
+    got = pack_bvh(build_bvh(mesh.vertices, mesh.faces, KDTreeConfig(leaf_size=leaf_size),
+                             backend=backend))
     for f in ("nodebox", "ctrl", "tris"):
         a, b = np.asarray(getattr(ref, f)), getattr(got, f)
         assert a.shape == b.shape and a.dtype == b.dtype, f
@@ -76,13 +78,15 @@ def test_treepack_tables_bit_equal(leaf_size):
 
 
 def test_plain_walks_match_jax_packet_kernel_and_jnp_walk(rng):
+    backend = jax_builder()
     mesh = jax_procedural.uv_sphere(rows=16, cols=16)
     jbvh = jax_build_bvh(mesh.vertices, mesh.faces, JaxKDTreeConfig(leaf_size=8))
     orig, dirn = _random_rays(rng, 1500)
     jo, jd = jnp.asarray(orig), jnp.asarray(dirn)
     kern = [np.asarray(x) for x in jax_ppacket(jax_pack_bvh(jbvh), jo, jd, interpret=True)]
     walk = [np.asarray(x) for x in jax_bvh_first_hit(jbvh, None, jo, jd)]
-    bvh = build_bvh(np.asarray(mesh.vertices), np.asarray(mesh.faces), KDTreeConfig(leaf_size=8))
+    bvh = build_bvh(np.asarray(mesh.vertices), np.asarray(mesh.faces), KDTreeConfig(leaf_size=8),
+                    backend=backend)
     o, d = torch.from_numpy(orig), torch.from_numpy(dirn)
     before = _build.COUNTERS["ppacket"].plain_calls
     pp = [x.numpy() for x in ppacket_first_hit(pack_bvh(bvh).to("cpu"), o, d)]

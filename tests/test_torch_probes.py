@@ -1,0 +1,274 @@
+"""PyTorch port, the lane-routing probes (``atray_tpu_torch/probes``): each
+probe's plain version against the TPU probe kernel of ``scripts/probe_r18.py``
+to ``probe_r22.py`` (P1-P11) in Pallas interpret mode on the same inputs, the
+wrappers' counters, and on a card each kernel against its plain version.
+
+The scripts run their TPU benchmarks when imported, so the test compiles only
+their imports, function definitions and upper-case constants (``ast``), and
+hands their functions a ``pl`` whose ``pallas_call`` passes
+``interpret=True``."""
+
+import ast
+import functools
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+from atray_tpu.kernels.lane_pack import pack_indices as jax_pack_indices  # noqa: E402
+from jax.experimental import pallas as pl  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+
+from atray_tpu_torch.kernels import _build  # noqa: E402
+from atray_tpu_torch.kernels.lane_pack import pack_indices  # noqa: E402
+from atray_tpu_torch.probes import (  # noqa: E402
+    probe_r18, probe_r19, probe_r20, probe_r21, probe_r22)
+
+SCRIPTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts")
+C, LANE = probe_r20.C, probe_r20.LANE
+F32 = jax.ShapeDtypeStruct
+
+
+class _InterpretPallas:
+    """``pl`` with ``pallas_call(..., interpret=True)``."""
+
+    def __getattr__(self, name):
+        if name == "pallas_call":
+            return functools.partial(pl.pallas_call, interpret=True)
+        return getattr(pl, name)
+
+
+@functools.lru_cache(maxsize=None)
+def _script(name):
+    """The definitions of ``scripts/<name>.py`` without its module-level runs."""
+    path = os.path.join(SCRIPTS, f"{name}.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    keep = [node for node in tree.body
+            if isinstance(node, (ast.Import, ast.ImportFrom, ast.FunctionDef))
+            or (isinstance(node, ast.Assign)
+                and all(isinstance(t, ast.Name) and t.id.isupper() for t in node.targets))]
+    ns = {"__name__": f"probe_script_{name}"}
+    exec(compile(ast.Module(body=keep, type_ignores=[]), path, "exec"), ns)
+    ns["pl"] = _InterpretPallas()
+    return ns
+
+
+def _call(kern, out_shape, *args, in_specs=None, scratch_shapes=()):
+    kw = {} if in_specs is None else {"in_specs": in_specs}
+    return np.asarray(pl.pallas_call(kern, out_shape=out_shape, interpret=True,
+                                     scratch_shapes=list(scratch_shapes), **kw)(*args))
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+SMEM_VMEM = [pl.BlockSpec(memory_space=pltpu.SMEM), pl.BlockSpec(memory_space=pltpu.VMEM),
+             pl.BlockSpec(memory_space=pltpu.VMEM)]
+
+
+def _route_inputs(rng, rel_hi=2048):
+    win = rng.normal(size=(C, 16, LANE)).astype(np.float32)
+    rel = rng.integers(0, rel_hi, size=(1, LANE)).astype(np.int32)
+    return win, rel
+
+
+def _dot_case(name, kern, a, b, reps, port_fn, **kw):
+    ref = _call(functools.partial(_script(name)[kern], reps=reps, **kw),
+                F32((a.shape[0], 128), jnp.float32), jnp.asarray(a), jnp.asarray(b))
+    return ref, port_fn(_t(a), _t(b), reps).numpy()
+
+
+def case_p1(rng):
+    a = rng.normal(size=(14, 128)).astype(np.float32)
+    b = rng.normal(size=(128, 128)).astype(np.float32)
+    ref, got = _dot_case("probe_r18", "_kern_t", a, b, 3, probe_r18.dot_t)
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * 3)
+
+
+def case_p2(rng):
+    a = rng.normal(size=(14, 128)).astype(np.float32)
+    b = rng.normal(size=(128, 128)).astype(np.float32)
+    ref, got = _dot_case("probe_r18", "_kern_n", a, b, 3, probe_r18.dot_n)
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * 3)
+
+
+def case_p3(rng):
+    for m in probe_r18.BF16_ROWS:
+        a = jnp.asarray(rng.normal(size=(m, 128)).astype(np.float32)).astype(jnp.bfloat16)
+        b = jnp.asarray((rng.random((128, 128)) < 0.01).astype(np.float32)).astype(jnp.bfloat16)
+        ref = _call(functools.partial(_script("probe_r18")["_kern_bf16"], reps=3),
+                    F32((m, 128), jnp.float32), a, b)
+        to_port = lambda x: _t(np.asarray(x.astype(jnp.float32))).to(torch.bfloat16)  # noqa: E731
+        got = probe_r18.dot_bf16(to_port(a), to_port(b), 3).numpy()
+        np.testing.assert_array_equal(got, ref)            # 0/1 operands: exact
+        assert np.abs(ref).max() > 0
+
+
+def case_p4(rng):
+    for m, k in ((14, 128), (16, 512), (14, 4096)):
+        a = rng.normal(size=(m, k)).astype(np.float32)
+        b = (rng.random((k, 128)) < 1.0 / k).astype(np.float32)
+        ref, got = _dot_case("probe_r19", "_kern_k", a, b, 2, probe_r19.dot_k)
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * 2)
+        assert np.abs(ref).max() > 0
+
+
+def case_p5(rng):
+    a = rng.normal(size=(14, 512)).astype(np.float32)
+    b = (rng.random((512, 128)) < 0.02).astype(np.float32)
+    ref, got = _dot_case("probe_r19", "_kern_indep", a, b, 3, probe_r19.dot_indep)
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * 3)
+    assert np.abs(ref).max() > 0
+
+
+def case_p6(rng):
+    win, rel = _route_inputs(rng, rel_hi=300)
+    for variant, unroll in probe_r20.LOOP_CASES[:5]:
+        n = np.asarray([240 // unroll], np.int32)
+        ref = _call(_script("probe_r20")["make_kern"](variant, unroll), F32((C, LANE), jnp.float32),
+                    jnp.asarray(n), jnp.asarray(win), jnp.asarray(rel), in_specs=SMEM_VMEM)
+        got = probe_r20.route_loop(_t(n), _t(win), _t(rel[0]), variant, unroll).numpy()
+        np.testing.assert_array_equal(got, ref, err_msg=f"{variant} x{unroll}")
+
+
+def case_p7(rng):
+    win, rel = _route_inputs(rng, rel_hi=300)
+    n = np.asarray([300], np.int32)
+    ref = _call(_script("probe_r20")["_kern_dyn"], F32((C, LANE), jnp.float32), jnp.asarray(n),
+                jnp.asarray(win), jnp.asarray(rel), in_specs=SMEM_VMEM)
+    got = probe_r20.route_dyn(_t(n), _t(win), _t(rel[0])).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert np.count_nonzero(ref) > 1000
+
+
+def case_p8(rng):
+    # rel within a few lanes of 0 so that the rows' short loops gather
+    win, rel = _route_inputs(rng, rel_hi=136)
+    for rows, carry6 in ((40, False), (43, True)):
+        n = np.asarray([rows], np.int32)
+        kern = functools.partial(_script("probe_r20")["_kern_nested"], inner=7, when_store=True,
+                                 carry6=carry6)
+        ref = _call(kern, F32((C, LANE), jnp.float32), jnp.asarray(n), jnp.asarray(win),
+                    jnp.asarray(rel), in_specs=SMEM_VMEM)
+        got, carry = probe_r20.route_nested(_t(n), _t(win), _t(rel[0]), 7, True, carry6)
+        np.testing.assert_array_equal(got.numpy(), ref)
+        assert np.count_nonzero(ref) > 100
+        if carry6:
+            assert carry.tolist() == probe_r20.nested_carries(rows)
+
+
+def case_p9(rng):
+    win, _ = _route_inputs(rng)
+    idx = rng.integers(0, LANE, size=(probe_r20.IDX_ROWS, LANE)).astype(np.int32)
+    n = np.asarray([60], np.int32)
+    for store_dyn in (False, True):
+        def kern(n_ref, idx_ref, win_ref, o_ref, *rest, store_dyn=store_dyn):
+            _script("probe_r20")["_kern_bigread"](n_ref, idx_ref, win_ref, o_ref,
+                                                  store_dyn=store_dyn,
+                                                  oslab_ref=rest[0] if rest else None)
+        scratch = [pltpu.VMEM((2, C, 450, LANE), jnp.float32)] if store_dyn else []
+        ref = _call(kern, F32((C, LANE), jnp.float32), jnp.asarray(n), jnp.asarray(idx),
+                    jnp.asarray(win), in_specs=SMEM_VMEM, scratch_shapes=scratch)
+        got, slab = probe_r20.route_bigread(_t(n), _t(idx), _t(win), store_dyn)
+        np.testing.assert_array_equal(got.numpy(), ref)
+        # the last row written to each slab row holds the sum after that row
+        if store_dyn:
+            jj = 59
+            np.testing.assert_array_equal(slab[jj % 2, :, (13 * jj) % 450].numpy(), ref)
+
+
+def _take_maps(rng, rows=256):
+    maps = []
+    for occ, wcap in ((0.15, 16), (0.035, 64)):
+        alive = rng.random(rows * LANE) < occ
+        idx = np.asarray(jax_pack_indices(jnp.asarray(alive)))
+        np.testing.assert_array_equal(pack_indices(_t(alive)).numpy(), idx)
+        maps.append((idx, wcap))
+    return maps
+
+
+def case_p10(rng):
+    cols = rng.normal(size=(256, 2, LANE)).astype(np.float32)
+    for idx, wcap in _take_maps(rng):
+        ref = np.asarray(_script("probe_r21")["lane_take_rm"](jnp.asarray(cols), jnp.asarray(idx),
+                                                              wcap=wcap))
+        got = probe_r21.take_rm(_t(cols), _t(idx)).numpy()
+        np.testing.assert_array_equal(got, ref)
+        assert np.count_nonzero(ref) > 0
+
+
+def case_p11(rng):
+    cols = rng.normal(size=(2, 256, LANE)).astype(np.float32)
+    for idx, wcap in _take_maps(rng):
+        ref = np.asarray(_script("probe_r22")["take"](jnp.asarray(cols), jnp.asarray(idx),
+                                                      wcap=wcap, mode="full"))
+        got = probe_r22.stream_take(_t(cols), _t(idx)).numpy()
+        np.testing.assert_array_equal(got, ref)
+        assert np.count_nonzero(ref) > 0
+
+
+CASES = {f"P{i}": fn for i, fn in enumerate(
+    (case_p1, case_p2, case_p3, case_p4, case_p5, case_p6, case_p7, case_p8, case_p9, case_p10,
+     case_p11), start=1)}
+
+
+@pytest.mark.parametrize("row", list(CASES))
+def test_plain_version_matches_tpu_probe_kernel(row):
+    CASES[row](np.random.default_rng(int(row[1:])))
+
+
+def test_cpu_wrappers_count_plain_calls_only():
+    rng = np.random.default_rng(3)
+    a = _t(rng.normal(size=(14, 512)).astype(np.float32))
+    b = _t(rng.normal(size=(512, 128)).astype(np.float32))
+    win, rel = (_t(x) for x in _route_inputs(rng))
+    a128, b128 = a[:, :128].contiguous(), b[:128]
+    n = torch.tensor([20], dtype=torch.int32)
+    cols = _t(rng.normal(size=(2, 8, LANE)).astype(np.float32))
+    idx = pack_indices(_t(rng.random(8 * LANE) < 0.3))
+    calls = {
+        "probe_dot_t": lambda: probe_r18.dot_t(a128, b128, 2),
+        "probe_dot_n": lambda: probe_r18.dot_n(a128, b128, 2),
+        "probe_dot_bf16": lambda: probe_r18.dot_bf16(a128.bfloat16(), b128.bfloat16(), 2),
+        "probe_dot_k": lambda: probe_r19.dot_k(a, b, 2),
+        "probe_dot_indep": lambda: probe_r19.dot_indep(a, b, 2),
+        "probe_route_loop": lambda: probe_r20.route_loop(n, win, rel[0]),
+        "probe_route_dyn": lambda: probe_r20.route_dyn(n, win, rel[0]),
+        "probe_route_nested": lambda: probe_r20.route_nested(n, win, rel[0]),
+        "probe_route_bigread": lambda: probe_r20.route_bigread(
+            n, probe_r20.bigread_idx("cpu", rows=50), win),
+        "probe_take_rm": lambda: probe_r21.take_rm(cols.permute(1, 0, 2).contiguous(), idx),
+        "probe_stream_take": lambda: probe_r22.stream_take(cols, idx),
+    }
+    assert set(calls) == {k for k in _build.COUNTERS if k.startswith("probe_")}
+    for name, call in calls.items():
+        before = {k: (c.launches, c.plain_calls) for k, c in _build.COUNTERS.items()}
+        call()
+        after = {k: (c.launches, c.plain_calls) for k, c in _build.COUNTERS.items()}
+        assert after[name] == (before[name][0], before[name][1] + 1), name
+        assert all(after[k] == before[k] for k in after if k != name), name
+    with pytest.raises(ValueError):
+        probe_r22.stream_take(cols, idx, "nocopy")       # timing modes run only on a card
+    with pytest.raises(ValueError):
+        probe_r19.dot_indep(a[:, :256].contiguous(), b[:256], 1)
+
+
+@pytest.mark.cuda
+def test_cuda_probe_kernels_match_plain_versions():
+    # each module's check(): the kernels against their plain versions at the
+    # scripts' shapes (reps cut for the products), the takes at 2,073,600
+    # lanes x 14 planes on packed and scattered maps
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    errs = {}
+    for mod in (probe_r18, probe_r19, probe_r20, probe_r21, probe_r22):
+        errs.update(mod.check(dev, out=lambda line: None))
+    assert set(errs) == {k for k in _build.COUNTERS if k.startswith("probe_")}

@@ -14,6 +14,7 @@ torch.set_num_threads(2)
 from atray_tpu.accel.shaded import build_shaded_accel as jax_build_shaded_accel  # noqa: E402
 from atray_tpu.config import KDTreeConfig as JaxKDTreeConfig  # noqa: E402
 from atray_tpu.native import available as jax_native_available  # noqa: E402
+from atray_tpu.native import bindings as jax_native_bindings  # noqa: E402
 from atray_tpu.scene import build_scene as jax_build_scene  # noqa: E402
 from atray_tpu.scene import procedural as jax_procedural  # noqa: E402
 from atray_tpu.scene import transforms as jax_transforms  # noqa: E402
@@ -53,10 +54,22 @@ def test_transforms_array_equal():
                        transforms.scale_to(port, 2.5))
 
 
+def _jax_native_loads() -> bool:
+    """Whether the JAX package's native builder loads, retried once: its
+    loader gives up for the life of the process after one failed load, and
+    under parallel workers that load can fall while another worker is still
+    writing the library (built in place, its stamp after it). By now that
+    worker has finished the file and its stamp."""
+    if jax_native_available():
+        return True
+    jax_native_bindings._tried = False
+    return jax_native_bindings.ensure_built()
+
+
 @pytest.mark.parametrize("backend", ["numpy", "native"])
 @pytest.mark.parametrize("name,args", MESHES)
 def test_shaded_accel_tables_bit_equal(name, args, backend):
-    if backend == "native" and not (jax_native_available() and port_native_available()):
+    if backend == "native" and not (_jax_native_loads() and port_native_available()):
         pytest.skip("no C++ toolchain for the native builder")
     cfg = dict(leaf_size=8)
     ref = jax_build_shaded_accel(

@@ -26,7 +26,7 @@ from atray_tpu.render import wavefront as jw  # noqa: E402
 from atray_tpu.scene import build_scene as jax_build_scene  # noqa: E402
 from atray_tpu.scene import procedural as jax_procedural  # noqa: E402
 from atray_tpu.scene.data import make_materials as jax_make_materials  # noqa: E402
-from test_torch_render import _mixed_scene, _tree  # noqa: E402
+from test_torch_render import _mixed_scene, _tree, jax_builder, pin_port_builder  # noqa: E402
 
 from atray_tpu_torch.accel.bvh import build_bvh  # noqa: E402
 from atray_tpu_torch.accel.pack import pack_bvh  # noqa: E402
@@ -56,7 +56,8 @@ def _bits(a):
 
 
 @pytest.mark.parametrize("name,args", MESHES)
-def test_pack_and_make_accel_tables_bit_equal(name, args):
+def test_pack_and_make_accel_tables_bit_equal(name, args, monkeypatch):
+    backend = pin_port_builder(monkeypatch)
     ref_mesh = getattr(jax_procedural, name)(*args)
     mesh = getattr(procedural, name)(*args)
     for leaf_size in (8, 16):
@@ -70,7 +71,7 @@ def test_pack_and_make_accel_tables_bit_equal(name, args):
             assert getattr(ref, f) == getattr(got, f), f
     cfg = dict(leaf_size=8)
     jp = jax_pack_bvh(jax_build_bvh(ref_mesh.vertices, ref_mesh.faces, JaxKDTreeConfig(**cfg)))
-    tp = pack_bvh(build_bvh(mesh.vertices, mesh.faces, KDTreeConfig(**cfg)))
+    tp = pack_bvh(build_bvh(mesh.vertices, mesh.faces, KDTreeConfig(**cfg), backend=backend))
     assert tp.tris.dtype == np.float32
     np.testing.assert_array_equal(_bits(jp.tris), _bits(tp.tris))
 
@@ -111,7 +112,8 @@ def _moved(rng, mesh):
             + rng.normal(0.0, 0.02, np.shape(mesh.vertices)).astype(np.float32))
 
 
-def test_refit_wide_matches_jax_and_brute_force(rng):
+def test_refit_wide_matches_jax_and_brute_force(rng, monkeypatch):
+    pin_port_builder(monkeypatch)
     mesh = jax_procedural.uv_sphere(rows=12, cols=12)
     cfg = KDTreeConfig(leaf_size=8)
     v_new = _moved(rng, mesh)
@@ -144,6 +146,7 @@ def test_refit_wide_matches_jax_and_brute_force(rng):
 
 
 def test_refit_shaded_matches_jax(rng):
+    backend = jax_builder()
     mesh = jax_procedural.uv_sphere(rows=12, cols=12)
     mats = jax_make_materials([((0.1, 0.1, 0.1), (0.0, 0.0, 0.0), 0.0),
                                ((0.0, 0.0, 0.0), (0.5, 0.5, 0.5), 0.0)])
@@ -154,7 +157,7 @@ def test_refit_shaded_matches_jax(rng):
     scene2 = scene.with_params(dataclasses.replace(scene.params(), vertices=jnp.asarray(v_new)))
     ref = jax_refit_shaded(ja, scene2)
     port_scene = scene_from_numpy(_tree(scene)).to("cpu")
-    port = build_shaded_accel(port_scene, KDTreeConfig(**cfg)).to("cpu")
+    port = build_shaded_accel(port_scene, KDTreeConfig(**cfg), backend=backend).to("cpu")
     moved = port_scene.with_params(dataclasses.replace(port_scene.params(),
                                                        vertices=torch.from_numpy(v_new)))
     got = refit_shaded(port, moved)
