@@ -37,9 +37,10 @@ LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
+    # rays, alive, n, node records, shaded records, leaf planes, leaf size,
+    # 6 outputs, the two stats planes (or null), stream
     "atray_wide_shade": (
-        [_P] * 7 + [ctypes.c_longlong] + [_P] * 3 + [ctypes.c_int]
-        + [_P, ctypes.c_int] + [_P] * 7
+        [_P] * 7 + [ctypes.c_longlong] + [_P] * 3 + [ctypes.c_int] + [_P] * 9
     ),
     "atray_wide_shade_stack_cap": [],
     "atray_lane_take": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
@@ -155,7 +156,7 @@ def _compile(lib_path: str) -> None:
                  for src, obj in zip(cu, objs)]
         errs = [proc.communicate()[1] for proc in procs]      # waits for every one
         _loaded.log += "".join(ln + "\n" for err in errs for ln in err.splitlines()
-                               if "ptxas info" in ln)
+                               if "ptxas info" in ln or "bytes stack frame" in ln)
         failed = [f"{os.path.basename(src)} (exit {proc.returncode}):\n{err}"
                   for src, proc, err in zip(cu, procs, errs) if proc.returncode != 0]
         if failed:

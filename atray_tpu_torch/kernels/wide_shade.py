@@ -7,14 +7,23 @@ float32 ray planes and a bool alive mask and returns, per ray, ``t``,
 (normalized) and ``mat`` (int32 material id). A miss is (INF, -1, 0, 0, 0,
 0); dead rays get the same sentinel without walking.
 
+With ``stats=True`` it also returns two int32 (R,) planes, the
+reference's traversal statistics: ``node_visits``, the nodes the ray
+popped, and ``leaf_visits``, the leaves whose records it tested (0 for a
+dead ray). The reference counts per pair of 8x128 lockstep blocks and
+copies the count to every ray of the pair; here the walk is per ray, so
+the counts are per ray. The hit planes are the same with stats on or off.
+
 On a CUDA tensor it launches ``csrc/wide_shade.cu`` (one thread per ray,
-per-thread stack); on a CPU tensor it runs ``wide_shade_planes_ref``, the
-plain PyTorch version of the same walk: same tables, same slab and
-Möller–Trumbore op order, same per-ray visit order, so the two agree
-bit-for-bit where the device's arithmetic is IEEE (the kernel is built with
-``--fmad=false``). The TPU kernel's block-level knobs (``block_sub``,
-``n_inter``, ``multi_pop``, ``octant_split``, ``ordered``) have no
-counterpart: they shape a lockstep walk, not its result.
+over the accel's derived tables ``cnodes``, one 256-byte record per node,
+and ``cleaves``, the leaves' geometry as planes); on a CPU tensor it runs
+``wide_shade_planes_ref``, the plain PyTorch version of the same walk:
+same tables, same slab and Möller–Trumbore op order, same per-ray visit
+order, so the two agree bit-for-bit where the device's arithmetic is IEEE
+(the kernel is built with ``--fmad=false``), counts included. The TPU
+kernel's block-level knobs (``block_sub``, ``n_inter``, ``multi_pop``,
+``octant_split``, ``ordered``) have no counterpart: they shape a lockstep
+walk, not its result.
 """
 
 from __future__ import annotations
@@ -29,6 +38,8 @@ from atray_tpu_torch.kernels import _build
 from atray_tpu_torch.kernels._plain import inv_dir, record_hit
 
 STACK_CAP = 128     # per-thread stack entries; ATRAY_STACK_CAP in the .cu
+OUTPUTS = ("t", "id", "nx", "ny", "nz", "mat")
+STATS = ("node_visits", "leaf_visits")
 COUNTER = _build.COUNTERS["wide_shade"]
 _EMPTY_GUARD = -2147483647   # links <= this are empty slots (INT32_MIN)
 
@@ -66,37 +77,38 @@ def _check(accel: ShadedWideBVH, planes, alive) -> torch.device:
 
 
 def wide_shade_planes(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz,
-                      alive) -> Dict[str, torch.Tensor]:
+                      alive, stats: bool = False) -> Dict[str, torch.Tensor]:
     """Nearest hit + shading data; see the module docstring."""
     dev = _check(accel, (ox, oy, oz, dx, dy, dz), alive)
     if dev.type == "cpu":
-        return wide_shade_planes_ref(accel, ox, oy, oz, dx, dy, dz, alive)
+        return wide_shade_planes_ref(accel, ox, oy, oz, dx, dy, dz, alive, stats=stats)
     if dev.type != "cuda":
         raise TypeError(f"no wide_shade kernel for device {dev}")
     lib = _build.load()
     if lib.atray_wide_shade_stack_cap() != STACK_CAP:
         raise RuntimeError("STACK_CAP disagrees with the compiled kernel")
-    n = ox.shape[0]
+    n = alive.shape[0]
     out = {k: torch.empty(n, dtype=torch.float32, device=dev) for k in ("t", "nx", "ny", "nz")}
-    out["id"] = torch.empty(n, dtype=torch.int32, device=dev)
-    out["mat"] = torch.empty(n, dtype=torch.int32, device=dev)
+    for k in ("id", "mat") + (STATS if stats else ()):
+        out[k] = torch.empty(n, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.atray_wide_shade(
-            ox.data_ptr(), oy.data_ptr(), oz.data_ptr(),
-            dx.data_ptr(), dy.data_ptr(), dz.data_ptr(), alive.data_ptr(), n,
-            accel.cboxes.data_ptr(), accel.clinks.data_ptr(), accel.caxis.data_ptr(),
-            accel.num_nodes, accel.tris.data_ptr(), accel.leaf_size,
-            out["t"].data_ptr(), out["id"].data_ptr(), out["nx"].data_ptr(),
-            out["ny"].data_ptr(), out["nz"].data_ptr(), out["mat"].data_ptr(), stream,
+            ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+            dz.data_ptr(), alive.data_ptr(), n,
+            accel.cnodes.data_ptr(), accel.tris.data_ptr(), accel.cleaves.data_ptr(),
+            accel.leaf_size,
+            *(out[k].data_ptr() for k in OUTPUTS),
+            *((out[k].data_ptr() for k in STATS) if stats else (None, None)), stream,
         )
-    COUNTER.launches += 1
     _build.check(rc, "wide_shade")
-    return {k: out[k] for k in ("t", "id", "nx", "ny", "nz", "mat")}
+    COUNTER.launches += 1
+    return {k: out[k] for k in OUTPUTS + (STATS if stats else ())}
 
 
 def wide_shade_planes_ref(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz,
-                          alive, visits: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+                          alive, visits: Optional[dict] = None,
+                          stats: bool = False) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version of the kernel: a vectorized walk in which every
     live ray keeps its own stack. Each iteration pops one node for every ray
     whose stack is not empty, tests its 8 child boxes against the ray's
@@ -104,7 +116,8 @@ def wide_shade_planes_ref(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz,
     interior children and testing leaves (16 records at once per ray; the
     first minimal t wins, as in the kernel's sequential strict-< loop).
     With a ``visits`` dict it adds the node pops and leaf records tested
-    ("nodes", "records"), the work this input needs."""
+    ("nodes", "records"), the work this input needs; with ``stats`` it
+    returns the kernel's per-ray ``node_visits`` and ``leaf_visits``."""
     COUNTER.plain_calls += 1
     dev = ox.device
     n = ox.shape[0]
@@ -135,11 +148,14 @@ def wide_shade_planes_ref(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz,
     recs_i = recs.view(i32)
     ks = torch.arange(accel.leaf_size, device=dev)
     counts = {"nodes": 0, "records": 0}
+    node_cnt = torch.zeros((m,), dtype=i32, device=dev)
+    leaf_cnt = torch.zeros((m,), dtype=i32, device=dev)
 
     def leaf_test(rows, leaf_row):
         ridx = leaf_row[:, None] * RECS_PER_ROW + ks[None, :]     # (j, L)
         rec = recs[ridx]                                           # (j, L, 32)
         counts["records"] += ridx.numel()
+        leaf_cnt[rows] += 1
         oc = o[rows]
         dc = d[rows]
         uu, vv, tt, hit = record_hit(oc[:, 0:1], oc[:, 1:2], oc[:, 2:3],
@@ -164,6 +180,7 @@ def wide_shade_planes_ref(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz,
         if cur.numel() == 0:
             break
         counts["nodes"] += cur.numel()
+        node_cnt[cur] += 1
         sp[cur] -= 1
         node = stack[cur, sp[cur]]
         oc = o[cur][:, :, None]
@@ -201,6 +218,11 @@ def wide_shade_planes_ref(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz,
     id_out[ray] = best_id
     nrm[ray] = best_n * rlen[:, None]
     mat_out[ray] = best_mat
-    return {"t": t_out, "id": id_out, "nx": nrm[:, 0].contiguous(),
-            "ny": nrm[:, 1].contiguous(), "nz": nrm[:, 2].contiguous(),
-            "mat": mat_out.to(i32)}
+    out = {"t": t_out, "id": id_out, "nx": nrm[:, 0].contiguous(),
+           "ny": nrm[:, 1].contiguous(), "nz": nrm[:, 2].contiguous(),
+           "mat": mat_out.to(i32)}
+    if stats:
+        for k, cnt in zip(STATS, (node_cnt, leaf_cnt)):
+            out[k] = torch.zeros((n,), dtype=i32, device=dev)
+            out[k][ray] = cnt
+    return out

@@ -40,11 +40,27 @@ def encode_png(rgb: np.ndarray) -> bytes:
             + _png_chunk(b"IDAT", zlib.compress(raw, 6)) + _png_chunk(b"IEND", b""))
 
 
-def save_png(path: str, film, srgb: bool = False) -> str:
-    """Write the film to a PNG (overwriting); returns the path."""
+def unique_path(path: str) -> str:
+    """``name.png`` -> the first free one of ``name.png``, ``name_1.png``,
+    ``name_2.png``, ... (the reference's collision-avoiding naming)."""
+    if not os.path.exists(path):
+        return path
+    stem, ext = os.path.splitext(path)
+    n = 1
+    while os.path.exists(f"{stem}_{n}{ext}"):
+        n += 1
+    return f"{stem}_{n}{ext}"
+
+
+def save_png(path: str, film, srgb: bool = False, avoid_collision: bool = True) -> str:
+    """Write the film to a PNG; returns the path written. With
+    ``avoid_collision`` an existing file is kept and the film goes to
+    ``unique_path(path)``; without it the file is overwritten."""
     if srgb:
         film = linear_to_srgb(torch.as_tensor(film))
     data = encode_png(to_uint8(film))
+    if avoid_collision:
+        path = unique_path(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as fh:
         fh.write(data)

@@ -15,10 +15,16 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
 3. the slice's host build (scene, 139k-triangle shaded accel), then
    ``wide_shade`` kernel vs ``wide_shade_planes_ref`` on it: 65,536 rays
    (camera primaries and bounce-like rays from their hit points, 10% dead)
-   and, at the main path's shape, one 4,147,200-ray chunk of primaries and
-   its bounce rays: a differing id must be a coincident face, t within
-   1 ulp, normals within 1e-6, materials equal, dead lanes give the miss
-   sentinel;
+   and, at the main path's shape, one 4,147,200-ray chunk of primaries,
+   its bounce rays, and the two launches ``render()`` makes at bounces 1
+   (full width) and 2 (sorted, live rays packed to a prefix) of that chunk
+   in phase 4's frame, captured: a differing id must be a coincident face,
+   t within 1 ulp, normals within 1e-6, materials equal, dead lanes give
+   the miss sentinel; with ``stats=True`` the hit planes must not change
+   and, on every ray whose t, id and material are bit-equal (at least 99%
+   of the live rays), the per-ray node and leaf visits must equal the plain
+   version's; each set's visits per live ray and warp
+   efficiency (mean over max node pops in each 32-ray warp's live lanes);
 4. the slice, through ``render()``: 1920x1080, 8 spp, 5 bounces, chunks of
    2*1920*1080 rays, the RenderSettings defaults (sort + lane pack on);
    one warm-up frame, then the launch counters are reset and two frames
@@ -54,7 +60,10 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
    vertices corrupted as ``examples/inverse_render.py`` does, Adam 3e-2
    (albedo) and 5e-4 (vertices), ``refit=True``: 4 steps on ``make_accel``,
    then 2 on the shaded accel; the loss of the last step must be below the
-   first's, ``wide_exact`` and ``wide_shade`` must have launched;
+   first's, ``wide_exact`` and ``wide_shade`` must have launched; then
+   ``wide_shade`` on the shaded accel refit to the trained vertices (its
+   node records and leaf planes rebuilt) against the plain version under
+   phase 3's rules;
 10. the pair-binned traversal's kernels on the slice accel (776 treelets)
     at one chunk's bounce rays (phase 3's hemisphere rays from the
     4,147,200 primaries' hit points): Phase A (``treelet_candidates``) and
@@ -129,6 +138,8 @@ OPS_PER_RECORD = 52           # Moller-Trumbore test of one leaf record
 OPS_PER_TREELET = 45          # Phase A: slab test, clamp and insertion of one treelet box
 OPS_PER_NODE = 25             # slab test of one binary node box (ppacket)
 TIE_PIXELS = 0.0005           # share of film pixels an exact tie may change
+FRAME_CHUNK = 2               # phase 3's chunk of the slice frame
+FRAME_BOUNCES = (1, 2)        # bounce 1 runs at full width; bounce 2 on, sorted and packed
 
 
 def _bound(nbytes: float, ops: float = 0.0):
@@ -286,42 +297,90 @@ def _planes_rules(got, want, alive, label):
     return int(id_diff.sum()), float(dt[hit].max()) if hit.any() else 0.0, nerr, hit
 
 
+def _walk_stats(st, alive):
+    """(node pops and leaf visits per live ray, the largest node pops, warp
+    efficiency, warps) of a stats launch. Warp efficiency: over each
+    32-ray warp of the launch that holds a live ray, the mean of its live
+    lanes' node pops over their maximum, averaged over those warps: the
+    share of a warp's lockstep time its rays use."""
+    import torch
+
+    nv, lv = st["node_visits"], st["leaf_visits"]
+    live = int(alive.sum())
+    if live == 0:
+        return 0.0, 0.0, 0, 0.0, 0
+    pad = (-nv.shape[0]) % 32
+    m = torch.cat([alive, alive.new_zeros(pad)]).reshape(-1, 32)
+    v = torch.where(m, torch.cat([nv, nv.new_zeros(pad)]).reshape(-1, 32).double(), 0.0)
+    cnt = m.sum(1)
+    keep = cnt > 0
+    eff = v.sum(1)[keep] / cnt[keep] / v.max(1).values[keep]
+    return (float(nv[alive].double().mean()), float(lv[alive].double().mean()),
+            int(nv.max()), float(eff.mean()), int(keep.sum()))
+
+
 def _compare_hits(accel, planes, alive, label, gpu):
-    """Kernel vs plain version on one ray set; returns (max error, kernel
-    ms, plain ms, kernel output)."""
-    from atray_tpu_torch.kernels.wide_shade import wide_shade_planes, wide_shade_planes_ref
+    """Kernel vs plain version on one ray set, stats off and on; returns
+    (max error, kernel ms, plain ms, kernel output, bound). With stats on
+    the kernel's hit planes must equal its planes with stats off, and on
+    every ray whose t, id and material equal the plain version's bit for
+    bit (at least 99% of the live rays), so must its per-ray node and leaf
+    visits: a ray's walk depends on no other ray."""
+    import torch
+
+    from atray_tpu_torch.kernels.wide_shade import (
+        OUTPUTS, STATS, wide_shade_planes, wide_shade_planes_ref)
 
     got = wide_shade_planes(accel, *planes, alive)
+    got_st = wide_shade_planes(accel, *planes, alive, stats=True)
     visits = {}
-    want = wide_shade_planes_ref(accel, *planes, alive, visits=visits)
+    want = wide_shade_planes_ref(accel, *planes, alive, visits=visits, stats=True)
     n_diff, max_abs_t, nerr, hit = _planes_rules(got, want, alive, f"wide_shade {label}")
+    if not all(torch.equal(got_st[k], got[k]) for k in OUTPUTS):
+        raise AssertionError(f"wide_shade {label}: stats=True changes the hit planes")
+    same = ((got["t"].view(torch.int32) == want["t"].view(torch.int32))
+            & (got["id"] == want["id"]) & (got["mat"] == want["mat"]))
+    n_same = int((same & alive).sum())
+    if n_same < 0.99 * int(alive.sum()):
+        raise AssertionError(f"wide_shade {label}: only {n_same} live rays bit-equal, "
+                             "too few to hold the visit counts to")
+    for k in STATS:
+        if not torch.equal(got_st[k][same], want[k][same]):
+            raise AssertionError(f"wide_shade {label}: per-ray {k} differ on bit-equal rays")
     al = alive.cpu().numpy()
     ms = _cuda_ms(lambda: wide_shade_planes(accel, *planes, alive), 20)
+    ms_st = _cuda_ms(lambda: wide_shade_planes(accel, *planes, alive, stats=True), 20)
     plain_ms = _host_ms(lambda: wide_shade_planes_ref(accel, *planes, alive))
     print(f"phase 3 wide_shade {label}: {alive.shape[0]} rays ({int(al.sum())} live, "
           f"{int(hit.sum())} hits): ids differ on {n_diff} (coincident faces), "
           f"max |dt| {max_abs_t:.3g}, max normal err {nerr:.3g}; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.1f} ms [{gpu}]")
+          f"with stats {ms_st:.4f} ms, plain {plain_ms:.1f} ms [{gpu}]")
     tab = sum(getattr(accel, k).nbytes for k in ("cboxes", "clinks", "caxis", "tris"))
     io = sum(p.nbytes for p in planes) + alive.nbytes + sum(v.nbytes for v in got.values())
     bound = _bound(io + tab, _walk_ops(visits))
     print(f"phase 3 wide_shade {label}: bound {bound[0]:.4f} ms by {bound[1]} "
           f"({(io + tab) / 1e6:.1f} MB; {visits['nodes']} node pops, "
           f"{visits['records']} records tested)")
+    nv, lv, nv_max, eff, warps = _walk_stats(got_st, alive)
+    print(f"phase 3 wide_shade {label} stats: per live ray {nv:.3f} node pops (max {nv_max}), "
+          f"{lv:.3f} leaf visits; warp efficiency {eff:.4f} over {warps} warps with a live "
+          f"ray; kernel counts == plain version's on the {int(same.sum())} of "
+          f"{alive.shape[0]} rays with bit-equal t, id and material")
     return max(max_abs_t, nerr), ms, plain_ms, got, bound
 
 
 def _chunk_rays(dev):
-    """The third of the slice's four 4,147,200-ray chunks (tile order): its
-    camera rays, which cross the dragon."""
+    """Chunk ``FRAME_CHUNK`` (the third) of the slice's four 4,147,200-ray
+    chunks (tile order): its camera rays, which cross the dragon."""
     from atray_tpu_torch.core.camera import camera_rays, look_at_camera
     from atray_tpu_torch.render.wavefront import to_tile_order
 
     cam = look_at_camera((0.0, 1.0, 0.8), (0.0, 0.0, -4.0), h_fov=0.9, aspect=16 / 9)
     o, d = camera_rays(cam, 1920, 1080, 8, device=dev)
     n = 2 * 1920 * 1080
-    o = to_tile_order(o, 1920, 1080, 8)[2 * n:3 * n]
-    d = to_tile_order(d, 1920, 1080, 8)[2 * n:3 * n]
+    part = slice(FRAME_CHUNK * n, (FRAME_CHUNK + 1) * n)
+    o = to_tile_order(o, 1920, 1080, 8)[part]
+    d = to_tile_order(d, 1920, 1080, 8)[part]
     return o, d
 
 
@@ -346,7 +405,8 @@ def _planes_of(o, d):
     return [o[:, k].contiguous() for k in range(3)] + [d[:, k].contiguous() for k in range(3)]
 
 
-def phase_wide_shade(accel, dev, gpu):
+def phase_wide_shade(scene, accel, dev, gpu):
+    """Phase 3; returns (max error, chunk bounce ms, plain ms, bound)."""
     import numpy as np
     import torch
 
@@ -372,23 +432,72 @@ def phase_wide_shade(accel, dev, gpu):
     bo, bd, hit = _hemisphere_rays(o, d, prim, rng, dev)
     err3, ms, plain_ms, _, bound = _compare_hits(accel, _planes_of(bo, bd), hit, "chunk bounce",
                                                  gpu)
-    return max(err1, err2, err3), ms, plain_ms, bound
+    del o, d, bo, bd, prim
+    # the frame's own launches: what render() hands wide_shade in one chunk
+    errs = [err1, err2, err3]
+    for b, args in _frame_launches(scene, accel).items():
+        errs.append(_compare_hits(accel, args[:6], args[6], f"frame bounce {b}", gpu)[0])
+    return max(errs), ms, plain_ms, bound
+
+
+def _slice_settings():
+    from atray_tpu_torch.config import RenderSettings
+    from atray_tpu_torch.core.camera import look_at_camera
+
+    w, h = 1920, 1080
+    settings = RenderSettings(resolution=(w, h), samples_per_pixel=8, bounce_limit=5,
+                              ray_chunk=2 * 1920 * 1080)
+    cam = look_at_camera((0.0, 1.0, 0.8), (0.0, 0.0, -4.0), h_fov=0.9, aspect=w / h)
+    return settings, cam
+
+
+def _frame_launches(scene, accel):
+    """The arguments ``render()`` hands ``wide_shade`` at ``FRAME_BOUNCES``
+    of chunk ``FRAME_CHUNK`` of one slice frame (phase 4's settings, key 0),
+    cloned: {bounce: [ox, oy, oz, dx, dy, dz, alive]}. Bounce 1 traces the
+    camera bounce's survivors at full width, in tile order; after it the
+    state is sorted and its live rays packed to a prefix
+    (``wavefront.trace_radiance``), so bounce 2 is the first sorted, packed
+    launch."""
+    import torch
+
+    from atray_tpu_torch.render import wavefront
+    from atray_tpu_torch.render.rng import prng_key
+
+    settings, cam = _slice_settings()
+    real = wavefront.wide_shade_planes
+    calls, got = [], {}
+
+    def spy(acc, *args, **kw):
+        chunk, b = divmod(len(calls), settings.bounce_limit)
+        calls.append(b)
+        if chunk == FRAME_CHUNK and b in FRAME_BOUNCES:
+            got[b] = [a.clone() for a in args]
+        return real(acc, *args, **kw)
+
+    wavefront.wide_shade_planes = spy
+    try:
+        wavefront.render(scene, cam, settings, prng_key(0), accel=accel)
+        torch.cuda.synchronize()
+    finally:
+        wavefront.wide_shade_planes = real
+    (w, h), spp = settings.resolution, settings.samples_per_pixel
+    chunks = -(-(w * h * spp) // settings.ray_chunk)
+    if len(calls) != chunks * settings.bounce_limit or sorted(got) != list(FRAME_BOUNCES):
+        raise AssertionError(f"the frame launched wide_shade {len(calls)} times")
+    return got
 
 
 def phase_slice(scene, accel, dev, gpu):
     import numpy as np
     import torch
 
-    from atray_tpu_torch.config import RenderSettings
-    from atray_tpu_torch.core.camera import look_at_camera
     from atray_tpu_torch.render.film import save_png
     from atray_tpu_torch.render.rng import prng_key
     from atray_tpu_torch.render.wavefront import render
 
-    w, h, spp, bounces = 1920, 1080, 8, 5
-    settings = RenderSettings(resolution=(w, h), samples_per_pixel=spp,
-                              bounce_limit=bounces, ray_chunk=2 * 1920 * 1080)
-    cam = look_at_camera((0.0, 1.0, 0.8), (0.0, 0.0, -4.0), h_fov=0.9, aspect=w / h)
+    settings, cam = _slice_settings()
+    (w, h), spp, bounces = settings.resolution, settings.samples_per_pixel, settings.bounce_limit
     t0 = time.perf_counter()
     film, _ = render(scene, cam, settings, prng_key(0), accel=accel, return_stats=True)
     torch.cuda.synchronize()
@@ -416,7 +525,7 @@ def phase_slice(scene, accel, dev, gpu):
     if not f.std() > 0.01:
         raise AssertionError(f"film std {f.std()} <= 0.01")
     os.makedirs("out", exist_ok=True)
-    save_png("out/chip_smoke.png", film, srgb=True)
+    save_png("out/chip_smoke.png", film, srgb=True, avoid_collision=False)
     for i, (sec, live) in enumerate(frames):
         print(f"phase 4 slice frame {i + 1}: 1920x1080 x {spp} spp x {bounces} bounces, "
               f"{chunks} chunks: {sec:.4f} s, live rays {live}, "
@@ -733,10 +842,11 @@ def phase_trainer(wide_host, dev, gpu):
     import numpy as np
     import torch
 
-    from atray_tpu_torch.accel.shaded import build_shaded_accel
+    from atray_tpu_torch.accel.shaded import build_shaded_accel, refit_shaded
     from atray_tpu_torch.config import KDTreeConfig
     from atray_tpu_torch.core.camera import camera_rays, look_at_camera
     from atray_tpu_torch.dist.train import make_train_step
+    from atray_tpu_torch.kernels.wide_shade import wide_shade_planes, wide_shade_planes_ref
     from atray_tpu_torch.render.rng import fold_in, prng_key
     from atray_tpu_torch.render.wavefront import trace_radiance
     from atray_tpu_torch.scene import build_scene, procedural
@@ -791,6 +901,20 @@ def phase_trainer(wide_host, dev, gpu):
         raise AssertionError(f"a plain version ran on the trainer path: {counts}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"trainer loss did not fall: {losses}")
+    # the kernel on a refit accel (fresh node records and leaf planes) against
+    # the plain version on the moved mesh, under phase 3's rules
+    with torch.no_grad():
+        moved = refit_shaded(shaded.to(dev), scene.with_params(p))
+        planes = _planes_of(orig, dirn)
+        alive = torch.ones(orig.shape[0], dtype=torch.bool, device=dev)
+        got = wide_shade_planes(moved, *planes, alive)
+        want = wide_shade_planes_ref(moved, *planes, alive)
+        n_diff, dt, nerr, hit = _planes_rules(got, want, alive, "wide_shade after refit_shaded")
+        moved_by = float((p.vertices - true.vertices).abs().max())
+    print(f"phase 9 wide_shade after refit_shaded (vertices moved by "
+          f"{moved_by:.3g}): {orig.shape[0]} rays "
+          f"({int(hit.sum())} hits), ids differ on {n_diff}, max |dt| {dt:.3g}, max normal err "
+          f"{nerr:.3g}, t bit-equal {torch.equal(got['t'], want['t'])}")
     print(f"phase 9 trainer: dragon_proxy(139_000), {views} views x {res}x{res} px = "
           f"{orig.shape[0]} rays, 1 spp, 2 bounces, refit=True; shaded accel build "
           f"{t_shaded:.2f} s; losses {', '.join(f'{x:.6g}' for x in losses)}")
@@ -1523,7 +1647,7 @@ def main() -> int:
     scene = scene_host.to(dev)
     accel = accel_host.to(dev)
 
-    ws_err, ws_ms, ws_plain, ws_bound = phase_wide_shade(accel, dev, gpu)
+    ws_err, ws_ms, ws_plain, ws_bound = phase_wide_shade(scene, accel, dev, gpu)
     counts, walk_film, walk_frames = phase_slice(scene, accel, dev, gpu)
     phase_small_vs_cpu(scene_host, accel_host, dev, gpu)
     phase_identity(scene, accel, gpu)
