@@ -20,7 +20,9 @@ contract. ``ShadedWideBVH.to(device)`` uploads them once.
 ``ShadedWideBVH.cnodes`` and ``cleaves`` are derived tables for the hit
 kernel: one 256-byte record per wide node (``node_records``, from
 ``cboxes``, ``clinks`` and ``caxis``) and the leaves' p0, e1, e2 as planes
-(``leaf_planes``, from ``tris``), built at first use on each accel object.
+(``leaf_planes``, from ``tris``), built at first use on each accel object;
+both builders live in ``accel/wide.py``, whose ``WideBVH`` derives the same
+tables from its stride-16 records.
 Every table change makes a new object (``to``, ``refit_shaded``), so they
 are never stale; the original tables stay for the plain versions and the
 other kernels.
@@ -36,39 +38,17 @@ import numpy as np
 import torch
 
 from atray_tpu_torch.accel.bvh import build_bvh
-from atray_tpu_torch.accel.wide import _collapse_wide_np
+from atray_tpu_torch.accel.wide import (  # noqa: F401  (NODE_WORDS: re-exported)
+    NODE_WORDS,
+    _collapse_wide_np,
+    leaf_planes,
+    node_records,
+)
 from atray_tpu_torch.config import KDTreeConfig
 from atray_tpu_torch.scene.data import _Leaves, to_numpy
 
 STRIDE32 = 32
 RECS_PER_ROW = 128 // STRIDE32   # 4
-NODE_WORDS = 64                  # one node record: 48 box floats, 8 links, axis, pad
-
-
-def node_records(cboxes, clinks, caxis) -> torch.Tensor:
-    """(W, 64) int32 words, one 256-byte record per wide node: words 0-47
-    the bits of ``cboxes[:, 0:48]`` (lo x, y, z then hi x, y, z, 8 children
-    each), 48-55 the 8 child links of ``clinks``, 56 ``caxis``, 57-63 zero.
-    Box floats travel as their bits (NaN payloads and all); the kernel
-    reads a record as 16-byte vectors."""
-    cboxes, clinks, caxis = (torch.as_tensor(x) for x in (cboxes, clinks, caxis))
-    w = cboxes.shape[0]
-    return torch.cat([
-        cboxes[:, 0:48].contiguous().view(torch.int32),
-        clinks.t().to(torch.int32),
-        caxis.reshape(w, 1).to(torch.int32),
-        torch.zeros((w, NODE_WORDS - 57), dtype=torch.int32, device=cboxes.device),
-    ], dim=1)
-
-
-def leaf_planes(tris, leaf_size: int) -> torch.Tensor:
-    """(S, 9, L) float32: for each leaf slot of ``tris`` (L = 4 *
-    rows_per_leaf records), plane p holds float p (p0, e1, e2) of its L
-    records, so the kernel reads four records' copy of one float as one
-    16-byte vector."""
-    tris = torch.as_tensor(tris)
-    lrec = RECS_PER_ROW * max(1, leaf_size // RECS_PER_ROW)
-    return tris.reshape(-1, lrec, STRIDE32)[:, :, 0:9].transpose(1, 2).contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,8 +91,9 @@ class ShadedWideBVH(_Leaves):
 
     @functools.cached_property
     def cleaves(self) -> torch.Tensor:
-        """``leaf_planes`` of this accel's records, built once per object."""
-        return leaf_planes(self.tris, self.leaf_size)
+        """``leaf_planes`` of this accel's stride-32 records, built once
+        per object."""
+        return leaf_planes(self.tris, self.leaf_size, STRIDE32)
 
 
 def _treelet_boxes_np(tris: np.ndarray, leaf_size: int, leaves_per_treelet: int):

@@ -10,6 +10,16 @@ cut entry becomes a child slot. Host numpy in, numpy out.
 ``make_accel`` builds it, ``refit_wide`` moves it with the vertices of an
 optimization loop, ``WideBVH.to(device)`` uploads it.
 
+``WideBVH.cnodes`` and ``cleaves`` are the derived tables the hit kernel
+reads: one 256-byte record per wide node (``node_records``, from
+``cboxes``, ``clinks`` and ``caxis``) and the leaves' p0, e1, e2 as planes
+(``leaf_planes``, from ``tris``), built with a few tensor ops on the
+tables' device at first use on each accel object. Every table change makes
+a new object (``to``, ``refit_wide``), so they are never stale; the
+original tables stay for the plain versions and the other walks.
+``ShadedWideBVH`` (``accel/shaded.py``) derives the same two tables from
+its stride-32 records.
+
 Child-slot encoding (``clinks`` (8, W) i32):
 - internal child: wide-node id (>= 0)
 - leaf child:     -(leaf_row + 1)   (<= -1)
@@ -25,6 +35,7 @@ children are sorted by centroid, ascending.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import sys
 from typing import List, Optional
 
@@ -32,12 +43,43 @@ import numpy as np
 import torch
 
 from atray_tpu_torch.accel.bvh import BVH, build_bvh
-from atray_tpu_torch.accel.pack import TRIS_PER_ROW, TreePack, pack_bvh
+from atray_tpu_torch.accel.pack import TRI_STRIDE, TRIS_PER_ROW, TreePack, pack_bvh
 from atray_tpu_torch.config import KDTreeConfig
 from atray_tpu_torch.scene.data import _Leaves
 
 EMPTY = np.int32(-2147483648)
 WIDTH = 8
+NODE_WORDS = 64     # one node record: 48 box floats, 8 links, axis, pad
+
+
+def node_records(cboxes, clinks, caxis) -> torch.Tensor:
+    """(W, 64) int32 words, one 256-byte record per wide node: words 0-47
+    the bits of ``cboxes[:, 0:48]`` (lo x, y, z then hi x, y, z, 8 children
+    each), 48-55 the 8 child links of ``clinks``, 56 ``caxis``, 57-63 zero.
+    Box floats travel as their bits (NaN payloads and all); the kernels
+    read a record as 16-byte vectors."""
+    cboxes, clinks, caxis = (torch.as_tensor(x) for x in (cboxes, clinks, caxis))
+    w = cboxes.shape[0]
+    return torch.cat([
+        cboxes[:, 0:48].contiguous().view(torch.int32),
+        clinks.t().to(torch.int32),
+        caxis.reshape(w, 1).to(torch.int32),
+        torch.zeros((w, NODE_WORDS - 57), dtype=torch.int32, device=cboxes.device),
+    ], dim=1)
+
+
+def leaf_planes(tris, leaf_size: int, stride: int) -> torch.Tensor:
+    """(S, 9, L) float32 planes of the leaf rows ``tris`` (rows of 128
+    floats, records of ``stride`` floats, p0, e1, e2 at floats 0-8): for
+    each of the S leaf slots (L = the records of ``max(1, leaf_size //
+    (128 // stride))`` rows), plane p holds float p of its L records, so a
+    kernel reads four records' copy of one float as one 16-byte vector:
+    float p of record k of the leaf at row r is lane k % 4 of float4
+    ``r * 9 * (128 // stride) // 4 + p * L // 4 + k // 4``."""
+    tris = torch.as_tensor(tris)
+    per_row = 128 // stride
+    lrec = per_row * max(1, leaf_size // per_row)
+    return tris.reshape(-1, lrec, stride)[:, :, 0:9].transpose(1, 2).contiguous()
 
 
 def _collapse_wide_np(bvh: BVH):
@@ -162,6 +204,19 @@ class WideBVH(_Leaves):
     def device(self) -> torch.device:
         cb = self.cboxes
         return cb.device if isinstance(cb, torch.Tensor) else torch.device("cpu")
+
+    @functools.cached_property
+    def cnodes(self) -> torch.Tensor:
+        """``node_records`` of this accel's tables, on their device; built
+        once per object (the dataclass is frozen, so its tables never
+        change under it)."""
+        return node_records(self.cboxes, self.clinks, self.caxis)
+
+    @functools.cached_property
+    def cleaves(self) -> torch.Tensor:
+        """``leaf_planes`` of this accel's stride-16 records, built once
+        per object."""
+        return leaf_planes(self.tris, self.leaf_size, TRI_STRIDE)
 
 
 def build_wide_bvh(bvh: BVH, tris_packed: np.ndarray) -> WideBVH:

@@ -45,9 +45,10 @@ _SIGNATURES = {
     "atray_wide_shade_stack_cap": [],
     "atray_lane_take": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
     "atray_lane_scatter": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
+    # rays, n, node records, stride-16 records, leaf planes, leaf size,
+    # 4 outputs, stream
     "atray_wide_exact": (
-        [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P, ctypes.c_int]
-        + [_P] * 5
+        [_P, _P, ctypes.c_longlong, _P, _P, _P, ctypes.c_int] + [_P] * 5
     ),
     "atray_wide_exact_stack_cap": [],
     "atray_treelet_phase_a": (

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from atray_tpu_torch.accel.pack import TRIS_PER_ROW
+from atray_tpu_torch.accel.wide import NODE_WORDS
 
 
 def check_rays(orig: torch.Tensor, dirn: torch.Tensor, kernel: str) -> torch.device:
@@ -54,9 +55,12 @@ def check_treepack(pack, orig: torch.Tensor, dirn: torch.Tensor, kernel: str) ->
 
 
 def check_wide(accel, orig: torch.Tensor, dirn: torch.Tensor, kernel: str,
-               stack_cap: int) -> torch.device:
+               stack_cap: int, derived: bool = False) -> torch.device:
     """Rays and a ``WideBVH`` uploaded to their device, shallow enough for
-    a walk stack of ``stack_cap`` entries (``8 * (max_depth + 2)``)."""
+    a walk stack of ``stack_cap`` entries (``8 * (max_depth + 2)``). With
+    ``derived``, on a CUDA device only, also the kernel's derived tables
+    ``cnodes`` and ``cleaves`` (built here at first use): device, dtype,
+    shape and 16-byte alignment."""
     dev = check_rays(orig, dirn, kernel)
     _check_tables("accel", {"cboxes": (accel.cboxes, torch.float32),
                             "clinks": (accel.clinks, torch.int32),
@@ -69,4 +73,24 @@ def check_wide(accel, orig: torch.Tensor, dirn: torch.Tensor, kernel: str,
         raise ValueError(
             f"wide depth {accel.max_depth} needs a stack of "
             f"{8 * (accel.max_depth + 2)} > STACK_CAP {stack_cap}")
+    if derived and dev.type == "cuda":
+        _check_derived(accel, dev)
     return dev
+
+
+def _check_derived(accel, dev: torch.device) -> None:
+    _check_tables("accel", {"caxis": (accel.caxis, torch.int32)}, dev)
+    rows_per_leaf = accel.rows_per_leaf
+    rows = accel.tris.shape[0]
+    if rows % rows_per_leaf:
+        raise ValueError("accel.tris does not hold whole leaves")
+    lrec = TRIS_PER_ROW * rows_per_leaf
+    nodes, leaves = accel.cnodes, accel.cleaves
+    _check_tables("accel", {"cnodes": (nodes, torch.int32), "cleaves": (leaves, torch.float32)},
+                  dev)
+    if nodes.shape != (accel.num_nodes, NODE_WORDS):
+        raise ValueError("accel.cnodes does not match num_nodes")
+    if leaves.shape != (rows // rows_per_leaf, 9, lrec):
+        raise ValueError("accel.cleaves does not match accel.tris")
+    if nodes.data_ptr() % 16 or leaves.data_ptr() % 16:
+        raise ValueError("accel.cnodes and accel.cleaves must be 16-byte aligned")

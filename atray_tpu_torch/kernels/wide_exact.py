@@ -10,8 +10,11 @@ they hide TPU syncs, so ``wide_exact2_first_hit`` is the same function
 here and ``WideBVH`` carries no variant field.
 
 On a CUDA tensor the wrapper launches ``csrc/wide_exact.cu`` (one thread
-per ray, its own stack); on a CPU tensor it runs ``wide_exact_ref``, the
-plain PyTorch version of the same walk: same tables, same slab and
+per ray, its own stack, over the accel's derived tables ``cnodes``, one
+256-byte record per node, and ``cleaves``, the leaves' geometry as
+planes); on a CPU tensor it runs ``wide_exact_ref``, the plain PyTorch
+version of the same walk over the original tables (no derived table is
+built there): same slab and
 Möller–Trumbore op order, same per-ray visit order, so the two agree
 bit-for-bit where the device's arithmetic is IEEE (the kernel is built
 with ``--fmad=false``).
@@ -39,7 +42,7 @@ Hits = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 def wide_exact_first_hit(accel: WideBVH, orig: torch.Tensor, dirn: torch.Tensor) -> Hits:
     """Nearest hit per ray; see the module docstring."""
-    dev = check_wide(accel, orig, dirn, "wide_exact", STACK_CAP)
+    dev = check_wide(accel, orig, dirn, "wide_exact", STACK_CAP, derived=True)
     if dev.type == "cpu":
         return wide_exact_ref(accel, orig, dirn)
     lib = _build.load()
@@ -52,8 +55,8 @@ def wide_exact_first_hit(accel: WideBVH, orig: torch.Tensor, dirn: torch.Tensor)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.atray_wide_exact(
             orig.data_ptr(), dirn.data_ptr(), n,
-            accel.cboxes.data_ptr(), accel.clinks.data_ptr(), accel.num_nodes,
-            accel.tris.data_ptr(), accel.leaf_size,
+            accel.cnodes.data_ptr(), accel.tris.data_ptr(), accel.cleaves.data_ptr(),
+            accel.leaf_size,
             t.data_ptr(), u.data_ptr(), v.data_ptr(), fid.data_ptr(), stream)
     COUNTER.launches += 1
     _build.check(rc, "wide_exact")

@@ -7,7 +7,8 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
 
 1. environment: torch and CUDA versions, the card's name and power limit
    (nvidia-smi), then the nvcc build of every kernel in
-   ``atray_tpu_torch/csrc/`` and its wall time;
+   ``atray_tpu_torch/csrc/`` and its wall time, every kernel's ptxas
+   resources, and ``wide_exact``'s registers, stack frame and spills;
 2. ``lane_take`` kernel vs ``lane_take_ref`` at N = 4,147,200 (one chunk of
    the slice): pack, unpack and a scattered map with 5% -1, for C = 15, 14
    (the state pack) and 3 (the colour restore); results must be equal;
@@ -43,10 +44,15 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
    (allclose 1e-6: the atomics sum in varying order); kernel, plain and
    ``index_add_`` times;
 7. the unshaded ``make_accel`` of the slice's 139k-triangle mesh, then
-   ``wide_exact`` kernel vs ``wide_exact_ref`` on 65,536 mixed rays and on
-   the gradient config's 2,073,600 primaries and their bounce rays, under
-   phase 3's rules: t within 1 ulp, u and v within 1e-6, a differing id
-   only where the plain version hits (coincident faces);
+   ``wide_exact`` kernel vs ``wide_exact_ref`` on 65,536 mixed rays, on
+   the gradient config's 2,073,600 primaries and their bounce rays, and on
+   the trainer's own two launches of its first step (phase 9's 16 orbit
+   views x 64x64 primaries and their bounce rays, captured from
+   ``trace_radiance`` on phase 9's scene at its first vertices, over the
+   accel refit to them as the step refits it), under phase 3's rules: t within 1 ulp, u and v
+   within 1e-6, a differing id only where the plain version hits
+   (coincident faces); each set's kernel time and its bound from the plain
+   version's visits;
 8. the gradient of ``sum(render(...))`` at ``bench.py``'s backward config
    (960x540, 4 spp, 3 bounces, one chunk, sort + lane pack on) on the
    slice scene's shaded accel: forward and forward+backward seconds, their
@@ -63,7 +69,9 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
    first's, ``wide_exact`` and ``wide_shade`` must have launched; then
    ``wide_shade`` on the shaded accel refit to the trained vertices (its
    node records and leaf planes rebuilt) against the plain version under
-   phase 3's rules;
+   phase 3's rules, ``wide_exact`` on the ``make_accel`` refit to them
+   under phase 7's rules, the device time of rebuilding the refit
+   ``make_accel``'s derived tables, and a profiled ``make_accel`` step;
 10. the pair-binned traversal's kernels on the slice accel (776 treelets)
     at one chunk's bounce rays (phase 3's hemisphere rays from the
     4,147,200 primaries' hit points): Phase A (``treelet_candidates``) and
@@ -94,7 +102,8 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     walks' leaf queue) and on 65,553 ragged primaries; then timed at full
     width on phase 12's 2,073,600 primaries and bounce rays (a 262,144-ray
     prefix where one launch passes 1 s) beside ``ppacket`` and
-    ``wide_exact``, each with its bound from the per-ray need
+    ``wide_exact`` (held to ``wide_exact_ref`` on the leaf-8 ``WideBVH``
+    there under phase 7's rules), each with its bound from the per-ray need
     (``ppacket_ref`` or ``wide_exact_ref`` visits), the ratio of the warp's
     lockstep work to that need, launches and ptxas resources; the timed
     outputs are held against ``ppacket`` or ``wide_exact`` on the same
@@ -661,7 +670,7 @@ def phase_lane_scatter(dev, gpu):
     return res
 
 
-def _exact_compare(accel, o, d, label, gpu):
+def _exact_compare(accel, o, d, label, gpu, phase=7):
     """wide_exact kernel vs plain version on one ray set: t within 1 ulp,
     u and v within 1e-6 where the ids agree, a differing id only where the
     plain version hits. Returns (max error, kernel ms, plain ms, bound)."""
@@ -692,7 +701,7 @@ def _exact_compare(accel, o, d, label, gpu):
     io = o.nbytes + d.nbytes + sum(x.nbytes for x in got)
     bound = _bound(io + tab, _walk_ops(visits))
     max_dt = float(dt[hit].max()) if hit.any() else 0.0
-    print(f"phase 7 wide_exact {label}: {o.shape[0]} rays ({int(hit.sum())} hits): ids differ "
+    print(f"phase {phase} wide_exact {label}: {o.shape[0]} rays ({int(hit.sum())} hits): ids differ "
           f"on {int((~same).sum())} (coincident faces), max |dt| {max_dt:.3g}, max u/v err "
           f"{uverr:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms "
           f"by {bound[1]} ({visits['nodes']} node pops, {visits['records']} records) [{gpu}]")
@@ -705,15 +714,157 @@ def _bwd_camera():
     return look_at_camera((0.0, 1.0, 0.8), (0.0, 0.0, -4.0), h_fov=0.9, aspect=16 / 9)
 
 
-def phase_wide_exact(scene_host, shaded, dev, gpu):
+def _trainer_scene():
+    """BASELINE config 5's scene: ``dragon_proxy(139_000)`` at (0, 0, -4)."""
+    from atray_tpu_torch.scene import build_scene, procedural
+    from atray_tpu_torch.scene.data import make_materials
+    from atray_tpu_torch.scene.transforms import translate
+
+    mats = make_materials([
+        ((0.35, 0.45, 0.65), (0.0, 0.0, 0.0), 0.0),
+        ((0.0, 0.0, 0.0), (0.8, 0.45, 0.25), 0.2),
+    ])
+    body = translate(procedural.dragon_proxy(target_tris=139_000, material=1), (0, 0, -4))
+    return build_scene([body], materials=mats)
+
+
+TRAIN_VIEWS, TRAIN_RES = 16, 64
+
+
+def _trainer_rays(dev):
+    """The trainer's primaries: 16 orbit views x 64x64 px x 1 spp, view by view."""
     import numpy as np
     import torch
 
-    from atray_tpu_torch.accel.wide import make_accel
-    from atray_tpu_torch.config import KDTreeConfig
+    from atray_tpu_torch.core.camera import camera_rays, look_at_camera
+
+    origs, dirns = [], []
+    for v in range(TRAIN_VIEWS):
+        ang = 2 * np.pi * v / TRAIN_VIEWS
+        cam = look_at_camera((2.5 * np.sin(ang), 0.8, -4 + 2.5 * np.cos(ang)), (0, 0, -4),
+                             h_fov=0.8, aspect=1.0)
+        o, d = camera_rays(cam, TRAIN_RES, TRAIN_RES, 1, device=dev)
+        origs.append(o)
+        dirns.append(d)
+    return torch.cat(origs), torch.cat(dirns)
+
+
+def _trainer_start(vertices):
+    """The trainer's first vertices: ``vertices`` corrupted by seeded noise
+    (std 0.004), as ``examples/inverse_render.py`` does."""
+    import numpy as np
+    import torch
+
+    noise = np.random.default_rng(3).normal(0, 0.004, tuple(vertices.shape))
+    return vertices + torch.from_numpy(noise.astype(np.float32)).to(vertices.device)
+
+
+def _trainer(scene_host, accels, orig, dirn, dev):
+    """Phase 9's trainer over the primaries (``orig``, ``dirn``): the target
+    traced at the true parameters on the first of ``accels`` (name ->
+    accel), albedo (x 0.4 + 0.2) and vertices (``_trainer_start``)
+    corrupted, one Adam, and a ``make_train_step`` (2 bounces,
+    ``refit=True``) for each accel. Returns (scene, true params, params,
+    target, steps by name)."""
+    import dataclasses
+
+    import torch
+
+    from atray_tpu_torch.dist.train import make_train_step
+    from atray_tpu_torch.render.rng import prng_key
+    from atray_tpu_torch.render.wavefront import trace_radiance
+
+    scene = scene_host.to(dev)
+    with torch.no_grad():
+        target = trace_radiance(scene, orig, dirn, 2, prng_key(0),
+                                accel=next(iter(accels.values())))
+    true = scene.params()
+    p = dataclasses.replace(true, albedo=(true.albedo * 0.4 + 0.2).requires_grad_(),
+                            vertices=_trainer_start(true.vertices).requires_grad_())
+    opt = torch.optim.Adam([{"params": [p.albedo], "lr": 3e-2},
+                            {"params": [p.vertices], "lr": 5e-4}])
+    steps = {name: make_train_step(scene_host, 2, opt, accel=acc, refit=True, device=dev)
+             for name, acc in accels.items()}
+    return scene, true, p, target, steps
+
+
+def _trainer_launches(scene, accel, orig, dirn):
+    """The (orig, dirn) that one trainer step's ``trace_radiance`` (2
+    bounces) hands ``wide_exact``: the primaries, then the bounce rays at
+    full width (dead lanes included, as the gather path walks them), cloned."""
+    import torch
+
+    from atray_tpu_torch.render import wavefront
+    from atray_tpu_torch.render.rng import prng_key
+
+    real = wavefront.wide_exact_first_hit
+    got = []
+
+    def spy(acc, o, d):
+        got.append((o.clone(), d.clone()))
+        return real(acc, o, d)
+
+    wavefront.wide_exact_first_hit = spy
+    try:
+        with torch.no_grad():
+            wavefront.trace_radiance(scene, orig, dirn, 2, prng_key(0), accel=accel)
+        torch.cuda.synchronize()
+    finally:
+        wavefront.wide_exact_first_hit = real
+    if len(got) != 2:
+        raise AssertionError(f"a 2-bounce trainer trace launched wide_exact {len(got)} times")
+    return got
+
+
+def _exact_sets(shaded, accel, trainer, dev):
+    """Phase 7's ray sets, label -> (accel, orig, dirn): over ``accel``,
+    65,536 mixed rays (camera primaries and bounce-like rays from their hit
+    points on ``shaded``), the gradient config's one chunk of 2,073,600
+    primaries (tile order) and their bounce rays; then the trainer's two
+    launches of its first step (``trainer`` = (scene, primaries' orig,
+    dirn)) over ``accel`` refit to the trainer's first vertices, as the step
+    walks them (``refit_wide`` widens every box by the largest vertex move)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from atray_tpu_torch.accel.wide import refit_wide
     from atray_tpu_torch.core.camera import camera_rays
     from atray_tpu_torch.kernels.wide_shade import wide_shade_planes
     from atray_tpu_torch.render.wavefront import to_tile_order
+
+    def hemisphere(o, d, rng):
+        fo = wide_shade_planes(shaded, *_planes_of(o, d),
+                               torch.ones(o.shape[0], dtype=torch.bool, device=dev))
+        bo, bd, _ = _hemisphere_rays(o, d, fo, rng, dev)
+        return bo.contiguous(), bd.contiguous()
+
+    rng = np.random.default_rng(14)
+    o, d = camera_rays(_bwd_camera(), 960, 540, 1, device=dev)
+    pick = torch.from_numpy(rng.choice(o.shape[0], 32_768, replace=False)).to(dev)
+    o, d = o[pick], d[pick]
+    bo, bd = hemisphere(o, d, rng)
+    sets = {"65536 mixed": (accel, torch.cat([o, bo]).contiguous(),
+                            torch.cat([d, bd]).contiguous())}
+    o, d = camera_rays(_bwd_camera(), 960, 540, 4, device=dev)
+    o = to_tile_order(o, 960, 540, 4).contiguous()
+    d = to_tile_order(d, 960, 540, 4).contiguous()
+    sets["chunk primaries"] = (accel, o, d)
+    sets["chunk bounce"] = (accel, *hemisphere(o, d, rng))
+    scene, orig, dirn = trainer
+    start = _trainer_start(scene.mesh.vertices)
+    refit = refit_wide(accel, start, scene.mesh.faces)
+    moved = scene.with_params(dataclasses.replace(scene.params(), vertices=start))
+    for label, od in zip(("trainer primaries", "trainer bounce"),
+                         _trainer_launches(moved, refit, orig, dirn)):
+        sets[label] = (refit, *od)
+    return sets
+
+
+def phase_wide_exact(scene_host, shaded, trainer, dev, gpu):
+    from atray_tpu_torch.accel.wide import make_accel
+    from atray_tpu_torch.config import KDTreeConfig
 
     t0 = time.perf_counter()
     host = make_accel(scene_host.mesh.vertices, scene_host.mesh.faces, KDTreeConfig(leaf_size=16))
@@ -722,28 +873,10 @@ def phase_wide_exact(scene_host, shaded, dev, gpu):
     print(f"phase 7 host build: make_accel {t_build:.2f} s ({host.num_nodes} wide nodes, "
           f"wide depth {host.max_depth}, tables {tbytes / 1e6:.1f} MB)")
     accel = host.to(dev)
-
-    def hemisphere(o, d, rng):
-        planes = [o[:, k].contiguous() for k in range(3)] + [d[:, k].contiguous() for k in range(3)]
-        fo = wide_shade_planes(shaded, *planes, torch.ones(o.shape[0], dtype=torch.bool, device=dev))
-        return _hemisphere_rays(o, d, fo, rng, dev)[:2]
-
-    rng = np.random.default_rng(14)
-    o, d = camera_rays(_bwd_camera(), 960, 540, 1, device=dev)
-    pick = torch.from_numpy(rng.choice(o.shape[0], 32_768, replace=False)).to(dev)
-    o, d = o[pick], d[pick]
-    bo, bd = hemisphere(o, d, rng)
-    err1, ms, plain_ms, bound = _exact_compare(
-        accel, torch.cat([o, bo]).contiguous(), torch.cat([d, bd]).contiguous(),
-        "65536 mixed", gpu)
-    # the gradient config's one chunk: 960x540 x 4 spp primaries, tile order
-    o, d = camera_rays(_bwd_camera(), 960, 540, 4, device=dev)
-    o = to_tile_order(o, 960, 540, 4).contiguous()
-    d = to_tile_order(d, 960, 540, 4).contiguous()
-    err2, _, _, _ = _exact_compare(accel, o, d, "chunk primaries", gpu)
-    bo, bd = hemisphere(o, d, rng)
-    err3, _, _, _ = _exact_compare(accel, bo.contiguous(), bd.contiguous(), "chunk bounce", gpu)
-    return host, max(err1, err2, err3), ms, plain_ms, bound
+    res = {label: _exact_compare(acc, o, d, label, gpu)
+           for label, (acc, o, d) in _exact_sets(shaded, accel, trainer, dev).items()}
+    _, ms, plain_ms, bound = res["65536 mixed"]
+    return host, max(r[0] for r in res.values()), ms, plain_ms, bound
 
 
 def _grad_leaves(scene):
@@ -836,57 +969,37 @@ def phase_gradient(scene, accel, scene_host, accel_host, dev, gpu):
     return counts, (t_f, t_b, peak)
 
 
-def phase_trainer(wide_host, dev, gpu):
-    import dataclasses
+def _device_ms(fn):
+    """(ms, kernels) of device kernel time of one call of ``fn``, from
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    import numpy as np
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(float(getattr(e, "self_device_time_total", 0.0)) for e in evs) / 1e3,
+            sum(e.count for e in evs))
+
+
+def phase_trainer(wide_host, scene_host, orig, dirn, dev, gpu):
     import torch
 
+    from atray_tpu_torch.accel.pack import TRI_STRIDE
     from atray_tpu_torch.accel.shaded import build_shaded_accel, refit_shaded
+    from atray_tpu_torch.accel.wide import leaf_planes, node_records, refit_wide
     from atray_tpu_torch.config import KDTreeConfig
-    from atray_tpu_torch.core.camera import camera_rays, look_at_camera
-    from atray_tpu_torch.dist.train import make_train_step
     from atray_tpu_torch.kernels.wide_shade import wide_shade_planes, wide_shade_planes_ref
     from atray_tpu_torch.render.rng import fold_in, prng_key
-    from atray_tpu_torch.render.wavefront import trace_radiance
-    from atray_tpu_torch.scene import build_scene, procedural
-    from atray_tpu_torch.scene.data import make_materials
-    from atray_tpu_torch.scene.transforms import translate
 
-    mats = make_materials([
-        ((0.35, 0.45, 0.65), (0.0, 0.0, 0.0), 0.0),
-        ((0.0, 0.0, 0.0), (0.8, 0.45, 0.25), 0.2),
-    ])
-    body = translate(procedural.dragon_proxy(target_tris=139_000, material=1), (0, 0, -4))
-    scene_host = build_scene([body], materials=mats)
     t0 = time.perf_counter()
     shaded = build_shaded_accel(scene_host, KDTreeConfig(leaf_size=16))
     t_shaded = time.perf_counter() - t0
-    views, res = 16, 64
-    origs, dirns = [], []
-    for v in range(views):
-        ang = 2 * np.pi * v / views
-        cam = look_at_camera((2.5 * np.sin(ang), 0.8, -4 + 2.5 * np.cos(ang)), (0, 0, -4),
-                             h_fov=0.8, aspect=1.0)
-        o, d = camera_rays(cam, res, res, 1, device=dev)
-        origs.append(o)
-        dirns.append(d)
-    orig, dirn = torch.cat(origs), torch.cat(dirns)
-    scene = scene_host.to(dev)
-    with torch.no_grad():
-        target = trace_radiance(scene, orig, dirn, 2, prng_key(0), accel=wide_host)
-
-    true = scene.params()
-    noise = torch.from_numpy(np.random.default_rng(3).normal(
-        0, 0.004, tuple(true.vertices.shape)).astype(np.float32)).to(dev)
-    p = dataclasses.replace(true, albedo=(true.albedo * 0.4 + 0.2).requires_grad_(),
-                            vertices=(true.vertices + noise).requires_grad_())
-    opt = torch.optim.Adam([{"params": [p.albedo], "lr": 3e-2},
-                            {"params": [p.vertices], "lr": 5e-4}])
-    steps = {"make_accel": make_train_step(scene_host, 2, opt, accel=wide_host, refit=True,
-                                           device=dev),
-             "shaded accel": make_train_step(scene_host, 2, opt, accel=shaded, refit=True,
-                                             device=dev)}
+    views, res = TRAIN_VIEWS, TRAIN_RES
+    scene, true, p, target, steps = _trainer(
+        scene_host, {"make_accel": wide_host, "shaded accel": shaded}, orig, dirn, dev)
     _reset_counts()
     losses, secs, plan = [], [], ["make_accel"] * 4 + ["shaded accel"] * 2
     for s, name in enumerate(plan):
@@ -915,6 +1028,16 @@ def phase_trainer(wide_host, dev, gpu):
           f"{moved_by:.3g}): {orig.shape[0]} rays "
           f"({int(hit.sum())} hits), ids differ on {n_diff}, max |dt| {dt:.3g}, max normal err "
           f"{nerr:.3g}, t bit-equal {torch.equal(got['t'], want['t'])}")
+    # wide_exact on the make_accel refit to the trained vertices (its node
+    # records and leaf planes rebuilt from the widened boxes), phase 7's rules
+    with torch.no_grad():
+        refit = refit_wide(wide_host, p.vertices, scene.mesh.faces)
+        err, _, _, _ = _exact_compare(refit, orig, dirn, "after refit_wide", gpu, phase=9)
+        tab_ms, tab_kernels = _device_ms(lambda: (
+            node_records(refit.cboxes, refit.clinks, refit.caxis),
+            leaf_planes(refit.tris, refit.leaf_size, TRI_STRIDE)))
+    print(f"phase 9 derived tables of the refit make_accel (rebuilt every step): cnodes + "
+          f"cleaves {tab_ms:.4f} ms of device time in {tab_kernels} kernels [{gpu}]")
     print(f"phase 9 trainer: dragon_proxy(139_000), {views} views x {res}x{res} px = "
           f"{orig.shape[0]} rays, 1 spp, 2 bounces, refit=True; shaded accel build "
           f"{t_shaded:.2f} s; losses {', '.join(f'{x:.6g}' for x in losses)}")
@@ -925,7 +1048,7 @@ def phase_trainer(wide_host, dev, gpu):
     key = fold_in(prng_key(0), len(plan))
     _profile_frame(lambda: steps["make_accel"](p, orig, dirn, target, key),
                    sum(secs[1:4]) / 3, gpu, "phase 9", "one make_accel trainer step")
-    return counts
+    return counts, err
 
 def _nan_lane_case(dev, rng):
     """A small shaded accel whose last treelet row has NaN pad lanes
@@ -1274,16 +1397,19 @@ def _lineage_fns():
 
 
 def _ptxas(name: str) -> str:
-    """The ``-Xptxas -v`` resource line of ``<name>_kernel`` in this
-    process's build."""
+    """The ``-Xptxas -v`` stack frame and spills, and registers, of
+    ``<name>_kernel`` in this process's build."""
     from atray_tpu_torch.kernels import _build
 
     lines = _build._loaded.log.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry" in line and f"{name}_kernel" in line:
+            frame = ""
             for nxt in lines[i + 1:]:
+                if "stack frame" in nxt:
+                    frame = nxt.strip() + "; "
                 if "registers" in nxt:
-                    return nxt.split(":", 1)[-1].strip()
+                    return frame + nxt.split(":", 1)[-1].strip()
     return "not in this process's build log"
 
 
@@ -1416,7 +1542,9 @@ def phase_lineage(walks, gpu):
     _reset_counts()
     for label in ("chunk primaries", "chunk bounce"):
         o, d = sets[label]
-        we_ms = _cuda_ms(lambda: wide_exact_first_hit(tabs["wide"], o, d), 10)
+        we_err, we_ms, _, _ = _exact_compare(tabs["wide"], o, d, f"leaf-8 WideBVH {label}", gpu,
+                                             phase=13)
+        res["wide_exact_err"] = max(res.get("wide_exact_err", 0.0), we_err)
         print(f"phase 13 lineup {label}: {o.shape[0]} rays; ppacket {walks['ppacket'][label][0]:.4f} "
               f"ms (phase 12), wide_exact on the leaf-8 WideBVH {we_ms:.4f} ms [{gpu}]")
         for name, kind, _ in LINEAGE:
@@ -1631,6 +1759,7 @@ def main() -> int:
     for line in _build._loaded.log.splitlines():
         if "registers" in line or "stack frame" in line or "Compiling entry" in line:
             print(f"phase 1 {line.strip()}")
+    print(f"phase 1 wide_exact ptxas: {_ptxas('wide_exact')}")
 
     lt = phase_lane_take(dev, gpu)
 
@@ -1652,9 +1781,12 @@ def main() -> int:
     phase_small_vs_cpu(scene_host, accel_host, dev, gpu)
     phase_identity(scene, accel, gpu)
     ls = phase_lane_scatter(dev, gpu)
-    wide_host, we_err, we_ms, we_plain, we_bound = phase_wide_exact(scene_host, accel, dev, gpu)
+    t_scene_host = _trainer_scene()
+    t_orig, t_dirn = _trainer_rays(dev)
+    wide_host, we_err, we_ms, we_plain, we_bound = phase_wide_exact(
+        scene_host, accel, (t_scene_host.to(dev), t_orig, t_dirn), dev, gpu)
     g_counts, _ = phase_gradient(scene, accel, scene_host, accel_host, dev, gpu)
-    t_counts = phase_trainer(wide_host.to(dev), dev, gpu)
+    t_counts, t_err = phase_trainer(wide_host.to(dev), t_scene_host, t_orig, t_dirn, dev, gpu)
     pk = phase_pair_kernels(accel, dev, gpu)
     p_counts = phase_pair_slice(scene, accel, walk_film, walk_frames, dev, gpu)
     del walk_film
@@ -1678,7 +1810,8 @@ def main() -> int:
                "atray_tpu/kernels/lane_pack.py:632", g_counts["lane_scatter"][0], ls_err,
                ls_ms, ls_plain, ls_bound, ls_lib),
         _entry("wide_exact", "atray_tpu_torch/csrc/wide_exact.cu",
-               "atray_tpu/kernels/wide_exact.py:46", t_counts["wide_exact"][0], we_err,
+               "atray_tpu/kernels/wide_exact.py:46", t_counts["wide_exact"][0],
+               max(we_err, t_err, lineage["wide_exact_err"]),
                we_ms, we_plain, we_bound, None),
         _entry("treelet_phase_a", "atray_tpu_torch/csrc/treelet_phase_a.cu",
                "atray_tpu/kernels/treelet_pairs.py:69", p_counts["treelet_phase_a"][0], 0.0,

@@ -2,7 +2,10 @@
 tables, ``refit_wide`` and ``refit_shaded``, the ``wide_exact`` walk
 (``kernels/wide_exact.py``) against the JAX Pallas kernel (interpret mode),
 the intersection helpers, and the gather path (``nearest_hit_ids`` +
-``resolve_hit``) against the JAX package."""
+``resolve_hit``) against the JAX package. The derived node records and
+leaf planes the CUDA kernel reads (``WideBVH.cnodes``, ``cleaves``)
+round-trip to the tables they come from through the kernel's own float4
+indices, also after a refit."""
 
 import dataclasses
 
@@ -31,12 +34,19 @@ from test_torch_render import _mixed_scene, _tree, jax_builder, pin_port_builder
 from atray_tpu_torch.accel.bvh import build_bvh  # noqa: E402
 from atray_tpu_torch.accel.pack import pack_bvh  # noqa: E402
 from atray_tpu_torch.accel.shaded import build_shaded_accel, refit_shaded  # noqa: E402
-from atray_tpu_torch.accel.wide import make_accel, refit_wide  # noqa: E402
+from atray_tpu_torch.accel.pack import TRI_STRIDE  # noqa: E402
+from atray_tpu_torch.accel.wide import (  # noqa: E402
+    NODE_WORDS,
+    leaf_planes,
+    make_accel,
+    node_records,
+    refit_wide,
+)
 from atray_tpu_torch.config import KDTreeConfig, RenderSettings  # noqa: E402
 from atray_tpu_torch.core import intersect  # noqa: E402
 from atray_tpu_torch.core.camera import camera_rays, look_at_camera  # noqa: E402
 from atray_tpu_torch.interop import scene_from_numpy, wide_accel_from_numpy  # noqa: E402
-from atray_tpu_torch.kernels import _build  # noqa: E402
+from atray_tpu_torch.kernels import _build, _checks  # noqa: E402
 from atray_tpu_torch.kernels.wide_exact import (  # noqa: E402
     wide_exact2_first_hit,
     wide_exact_first_hit,
@@ -254,6 +264,72 @@ def test_gather_path_render_matches_fused_render():
     assert float(std.std()) > 0.05
 
 
+def _round_trip_derived_tables(acc):
+    # node records: field f of child c is lane c % 4 of float4 2 f + c / 4
+    # of the node's 16; links are int4s 12 and 13, the axis word 56
+    rec = acc.cnodes
+    w = acc.num_nodes
+    assert rec.shape == (w, NODE_WORDS) and rec.dtype == torch.int32
+    assert rec.is_contiguous() and rec.data_ptr() % 16 == 0
+    vec4 = rec.reshape(-1, 4)
+    node = torch.arange(w)
+    boxes = acc.cboxes.contiguous().view(torch.int32)
+    for f in range(6):
+        for c in range(8):
+            assert torch.equal(vec4[node * 16 + 2 * f + c // 4, c % 4], boxes[:, 8 * f + c])
+    for c in range(8):
+        assert torch.equal(vec4[node * 16 + 12 + c // 4, c % 4], acc.clinks[c])
+    assert torch.equal(rec[:, 56], acc.caxis.reshape(-1))
+    assert not bool(rec[:, 57:].any())
+    assert acc.cnodes is rec                     # built once per accel object
+    # leaf planes: float p of record k of the leaf at row r is lane k % 4 of
+    # float4 r * 18 + p * per_plane + k / 4 (per_plane = 2 rows_per_leaf)
+    planes = acc.cleaves
+    rpl = acc.rows_per_leaf
+    per_plane = 2 * rpl
+    assert planes.shape == (acc.tris.shape[0] // rpl, 9, 8 * rpl) and planes.is_contiguous()
+    assert planes.data_ptr() % 16 == 0
+    links = acc.clinks.reshape(-1)
+    rows = torch.unique(-(links[(links < 0) & (links > -2 ** 31)].long() + 1))
+    assert rows.numel() > 1
+    flat4 = planes.reshape(-1, 4)
+    recs = acc.tris.reshape(-1, TRI_STRIDE)
+    for k in range(acc.leaf_size):
+        for p in range(9):
+            got = flat4[rows * 18 + p * per_plane + k // 4, k % 4]
+            assert torch.equal(got.view(torch.int32), recs[rows * 8 + k, p].view(torch.int32))
+    assert acc.cleaves is planes
+
+
+@pytest.mark.parametrize("leaf_size", [16, 8, 4])
+def test_derived_tables_round_trip_and_follow_refit_and_to(rng, leaf_size):
+    mesh = procedural.uv_sphere(12, 12)
+    v, f = np.asarray(mesh.vertices), np.asarray(mesh.faces)
+    host = make_accel(v, f, KDTreeConfig(leaf_size=leaf_size))
+    accel = host.to("cpu")
+    _round_trip_derived_tables(accel)
+    assert torch.equal(node_records(host.cboxes, host.clinks, host.caxis), accel.cnodes)
+    assert torch.equal(leaf_planes(host.tris, leaf_size, TRI_STRIDE), accel.cleaves)
+    again = accel.to("cpu")                      # a new object builds its own
+    assert "cnodes" not in vars(again) and "cleaves" not in vars(again)
+    assert again.cnodes is not accel.cnodes and torch.equal(again.cnodes, accel.cnodes)
+    assert again.cleaves is not accel.cleaves and torch.equal(again.cleaves, accel.cleaves)
+    moved = refit_wide(accel, torch.from_numpy(_moved(rng, mesh)), torch.from_numpy(f))
+    assert not torch.equal(moved.cboxes, accel.cboxes)
+    _round_trip_derived_tables(moved)            # the refit's widened boxes
+    assert not torch.equal(moved.cnodes, accel.cnodes)
+    assert not torch.equal(moved.cleaves, accel.cleaves)
+    # what the CUDA path checks of the derived tables (device-agnostic)
+    cpu = torch.device("cpu")
+    _checks._check_derived(moved, cpu)
+    for name, bad in (("cnodes", moved.cnodes[1:]), ("cleaves", moved.cleaves[:-1]),
+                      ("cleaves", moved.cleaves.double())):
+        wrong = dataclasses.replace(moved)
+        object.__setattr__(wrong, name, bad)
+        with pytest.raises((TypeError, ValueError), match=name):
+            _checks._check_derived(wrong, cpu)
+
+
 def test_wrapper_checks_inputs_and_builds_nothing_on_cpu(monkeypatch):
     def no_build():
         raise AssertionError("the CPU path must not build the CUDA kernels")
@@ -276,6 +352,8 @@ def test_wrapper_checks_inputs_and_builds_nothing_on_cpu(monkeypatch):
         wide_exact_first_hit(accel, torch.zeros((3, 4)).t(), d)
     with pytest.raises(ValueError, match="STACK_CAP"):
         wide_exact_first_hit(dataclasses.replace(accel, max_depth=40), o, d)
+    # the CPU path walks the original tables: no derived table was built
+    assert "cnodes" not in vars(accel) and "cleaves" not in vars(accel)
 
 
 @pytest.mark.cuda
@@ -283,12 +361,18 @@ def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
     mesh = procedural.dragon_proxy(target_tris=20000)
-    accel = make_accel(mesh.vertices, mesh.faces, KDTreeConfig(leaf_size=16)).to(dev)
-    o, d = _random_rays(np.random.default_rng(5), 20000)
+    o, d = _random_rays(rng, 20000)
     o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
-    got = wide_exact_first_hit(accel, o, d)
-    want = wide_exact_ref(accel, o, d)
-    torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    v_new = torch.from_numpy(_moved(rng, mesh)).to(dev)
+    for leaf_size in (16, 8):
+        accel = make_accel(mesh.vertices, mesh.faces, KDTreeConfig(leaf_size=leaf_size)).to(dev)
+        moved = refit_wide(accel, v_new, torch.from_numpy(np.asarray(mesh.faces)).to(dev))
+        for acc in (accel, moved):
+            got = wide_exact_first_hit(acc, o, d)
+            want = wide_exact_ref(acc, o, d)
+            torch.cuda.synchronize()
+            assert int((want[3] >= 0).sum()) > 1000
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)

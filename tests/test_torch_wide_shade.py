@@ -3,7 +3,7 @@ version is held to the JAX Pallas kernel (interpret mode) on identical
 tables, its per-ray traversal counts to the kernel's per-pair counts of
 pairs with one live ray; the CUDA kernel is held to the plain version on the card, its
 per-ray traversal counts (``stats=True``) included. The derived node
-records and leaf planes the kernel reads (``accel/shaded.py::node_records``,
+records and leaf planes the kernel reads (``accel/wide.py::node_records``,
 ``leaf_planes``) round-trip to the tables they come from, also after a
 refit."""
 
@@ -30,6 +30,7 @@ from atray_tpu.scene.transforms import translate as jax_translate  # noqa: E402
 
 from atray_tpu_torch.accel.shaded import (  # noqa: E402
     NODE_WORDS,
+    STRIDE32,
     build_shaded_accel,
     leaf_planes,
     node_records,
@@ -200,7 +201,7 @@ def test_derived_tables_round_trip_and_follow_a_refit(rng, leaf_size):
     _round_trip_derived_tables(accel)
     host = build_shaded_accel(scene, KDTreeConfig(leaf_size=leaf_size))
     assert torch.equal(node_records(host.cboxes, host.clinks, host.caxis), accel.cnodes)
-    assert torch.equal(leaf_planes(host.tris, leaf_size), accel.cleaves)
+    assert torch.equal(leaf_planes(host.tris, leaf_size, STRIDE32), accel.cleaves)
     v_new = scene.mesh.vertices + torch.from_numpy(
         rng.normal(0.0, 0.02, tuple(scene.mesh.vertices.shape)).astype(np.float32))
     moved = refit_shaded(accel, scene.with_params(
