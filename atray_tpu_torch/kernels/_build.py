@@ -43,8 +43,9 @@ _SIGNATURES = {
         [_P] * 7 + [ctypes.c_longlong] + [_P] * 3 + [ctypes.c_int] + [_P] * 9
     ),
     "atray_wide_shade_stack_cap": [],
-    "atray_lane_take": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
-    "atray_lane_scatter": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
+    # cols, idx, out, planes, lanes, planes a group, stream
+    "atray_lane_take": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P],
+    "atray_lane_scatter": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P],
     # rays, n, node records, stride-16 records, leaf planes, leaf size,
     # 4 outputs, stream
     "atray_wide_exact": (

@@ -15,10 +15,12 @@ whose backward is the other direction with the same index, as the
 reference's custom VJPs are.
 
 On a CUDA tensor ``lane_take`` launches ``csrc/lane_take.cu`` and
-``lane_scatter`` ``csrc/lane_scatter.cu``; on a CPU tensor they run
-``lane_take_ref`` and ``lane_scatter_ref``. The reference's band contract,
-window (``wcap``) and anchor alignment are TPU routing constraints with no
-counterpart here: both kernels take any index map.
+``lane_scatter`` ``csrc/lane_scatter.cu``, one launch a call; on a CPU
+tensor they run ``lane_take_ref`` and ``lane_scatter_ref``. The reference's
+band contract, window (``wcap``) and anchor alignment are TPU routing
+constraints with no counterpart here: both kernels take any index map.
+Both walk the planes in groups sized by ``plane_group`` so that one
+group's planes stay in the card's L2 (see the kernels' head notes).
 """
 
 from __future__ import annotations
@@ -29,6 +31,25 @@ from atray_tpu_torch.kernels import _build
 
 COUNTER = _build.COUNTERS["lane_take"]
 SCATTER_COUNTER = _build.COUNTERS["lane_scatter"]
+
+# L2 bytes the planes of one group may fill: two planes of a 4,147,200-ray
+# chunk, four of a 2,073,600-ray one. Smaller groups gather a scattered map
+# faster, but each group re-reads the index, which the path's pack and
+# unpack maps and the gradient's sparse scatters pay for.
+GROUP_BYTES = 32 << 20
+L2_BYTES = 50 << 20        # the H100's L2
+
+
+def plane_group(n: int, c: int) -> int:
+    """Planes of N 32-bit lanes that one group of a lane kernel walks: as
+    many as fit ``GROUP_BYTES``, at least one, at most ``c``. Each group
+    re-reads the index (4 B x N), from L2 only while the group's planes and
+    the index fit it together; where they do not, all ``c`` planes go in one
+    group, which reads the index once. On the path that is the pair routing
+    maps (N = K x R): one plane and the index exceed L2 there."""
+    plane = 4 * n
+    g = max(1, min(c, GROUP_BYTES // max(plane, 1)))
+    return c if (g + 1) * plane > L2_BYTES else g
 
 
 def _check(cols: torch.Tensor, idx: torch.Tensor, dtypes=(torch.float32, torch.int32)) -> None:
@@ -49,7 +70,8 @@ def _launch(fn_name: str, counter: _build.Counter, cols, idx, out) -> None:
     c, n = cols.shape
     with torch.cuda.device(cols.device):
         stream = torch.cuda.current_stream(cols.device).cuda_stream
-        rc = getattr(lib, fn_name)(cols.data_ptr(), idx.data_ptr(), out.data_ptr(), c, n, stream)
+        rc = getattr(lib, fn_name)(cols.data_ptr(), idx.data_ptr(), out.data_ptr(), c, n,
+                                   plane_group(n, c), stream)
     counter.launches += 1
     _build.check(rc, fn_name)
 

@@ -258,6 +258,14 @@ def bin_pairs(tids: torch.Tensor, num_treelets: int,
     return keys, perm, torch.where(selkey < bigk, selkey, -1).to(torch.int32)
 
 
+def pair_slots(keys: torch.Tensor, perm: torch.Tensor, cap: int) -> torch.Tensor:
+    """The ``lane_take`` map that routes pair results back to the K*R
+    slots: slot j reads sorted position ``perm^-1[j]``, -1 past ``cap``."""
+    inv = torch.empty_like(keys)
+    inv[perm] = torch.arange(keys.shape[0], dtype=keys.dtype, device=keys.device)
+    return torch.where(inv < cap, inv, -1)
+
+
 def _words(planes: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The six result planes as one (6, N) int32 tensor of their bits."""
     return torch.stack([planes[k] if planes[k].dtype == torch.int32
@@ -277,7 +285,6 @@ def treelet_pair_hit(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz, alive,
     ``unresolved`` marks the live rays the exact fallback re-walked."""
     r = ox.shape[0]
     k = k_slots
-    dev = ox.device
     tids, bound = treelet_candidates(accel, ox, oy, oz, dx, dy, dz, alive, k)
     cap = pair_cap(r, k, cap_frac)
     keys, perm, ptid = bin_pairs(tids, accel.num_treelets, cap)
@@ -286,14 +293,12 @@ def treelet_pair_hit(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz, alive,
     res = treelet_pair_walk(accel, *pb, ptid)
 
     # route pair results back to their slots by the inverse permutation
-    inv = torch.empty_like(keys)
-    inv[perm] = torch.arange(k * r, dtype=keys.dtype, device=dev)
-    slot = torch.where(inv < cap, inv, -1)
+    slot = pair_slots(keys, perm, cap)
     words = _words(res)
     if cap < k * r:
         words = torch.cat([words, words.new_zeros((6, k * r - cap))], dim=1)
     got = lane_take(words, slot)                                 # 0 where slot < 0
-    del words, perm, inv
+    del words, perm
     routed = slot >= 0
     dropped = (keys <= accel.num_treelets) & ~routed
     slots = _unwords(got)

@@ -10,9 +10,12 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
    ``atray_tpu_torch/csrc/`` and its wall time, every kernel's ptxas
    resources, and ``wide_exact``'s registers, stack frame and spills;
 2. ``lane_take`` kernel vs ``lane_take_ref`` at N = 4,147,200 (one chunk of
-   the slice): pack, unpack and a scattered map with 5% -1, for C = 15, 14
-   (the state pack) and 3 (the colour restore); results must be equal;
-   kernel, plain and ``index_select`` (the library yardstick) times;
+   the slice) and a ragged N = 65,553 (phase 13's primaries): pack, unpack
+   and a scattered map with 5% -1, for C = 15, 14 (the state pack) and 3
+   (the colour restore), and C = 3 planes that start 4 bytes past a 16-byte
+   boundary; results must be equal; kernel, plain and ``index_select`` (the
+   library yardstick) times; the pair path's own routing maps are held the
+   same way in phases 10 and 11, where their candidates exist;
 3. the slice's host build (scene, 139k-triangle shaded accel), then
    ``wide_shade`` kernel vs ``wide_shade_planes_ref`` on it: 65,536 rays
    (camera primaries and bounce-like rays from their hit points, 10% dead)
@@ -39,10 +42,11 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
 5. within the port on the card: at 256x144, 2 spp, 5 bounces the film with
    sort + lane pack on is bit-equal to the film with both off;
 6. ``lane_scatter`` kernel vs ``lane_scatter_ref`` at N = 2,073,600 (the
-   gradient config's chunk) and 4,147,200, C = 12 and 3, on pack and
-   unpack maps (torch.equal) and on a map where every target is hit twice
-   (allclose 1e-6: the atomics sum in varying order); kernel, plain and
-   ``index_add_`` times;
+   gradient config's chunk), 4,147,200 and a ragged 65,553, C = 12 and 3,
+   on pack and unpack maps (torch.equal) and on a map where every target
+   is hit twice (allclose 1e-6: the atomics sum in varying order), and at
+   2,073,600 on C = 12 planes that start 4 bytes past a 16-byte boundary;
+   kernel, plain and ``index_add_`` times;
 7. the unshaded ``make_accel`` of the slice's 139k-triangle mesh, then
    ``wide_exact`` kernel vs ``wide_exact_ref`` on 65,536 mixed rays, on
    the gradient config's 2,073,600 primaries and their bounce rays, and on
@@ -77,8 +81,11 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     4,147,200 primaries' hit points): Phase A (``treelet_candidates``) and
     Phase B (``treelet_pair_walk``, on the binned and capped pairs) against
     their plain versions, equal (torch.equal); the same on a small accel
-    whose last treelet row has NaN pad lanes; then ``treelet_pair_hit``
-    against ``wide_shade`` on those rays under phase 3's rules;
+    whose last treelet row has NaN pad lanes; ``lane_take`` on the pair
+    path's routing map (the slot map ``treelet_pair_hit`` builds from the
+    chunk's candidates, C = 6, N = K x 4,147,200) under phase 2's rules;
+    then ``treelet_pair_hit`` against ``wide_shade`` on those rays under
+    phase 3's rules;
 11. the slice with ``pair_bounces=True``: one warm-up frame and two timed
     ones with phase 4's keys; the film must equal phase 4's film of the
     same key (pixels that differ are counted, at most 0.05%: an exact tie
@@ -87,6 +94,9 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     profiled frame; then phase 8's gradient with ``pair_bounces=True``:
     the pair kernels launch in the forward only, and the gradient equals
     the default path's (within 1e-4 of max |g| but for 0.2% of values);
+    ``lane_take`` on the gradient's own routing map (captured from its
+    forward: C = 6, N = K x 2,073,600) under phase 2's rules; a profiled
+    pair forward+backward;
 12. ``ppacket`` (the ``TreePack`` walk) against ``ppacket_ref`` on 65,536
     mixed rays and on the gradient config's 2,073,600 primaries and their
     bounce rays (phase 7's rules), over a ``HybridAccel`` of the slice
@@ -124,8 +134,10 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     ``index_select`` for P10-P11) at one variant of each.
 
 Each path's launch counts are set to 0 just before it runs and read just
-after. Then a JSON line of per-kernel results (times, launches, bound),
-and as the last line ``{"ok": true, "device": {...}}``. The script needs a
+after. Every profile (phases 4, 8, 9, 11) prints device time by kernel
+and, where they ran, the lane kernels' device time and launches. Then a
+JSON line of per-kernel results (times, launches, bound), and as the last
+line ``{"ok": true, "device": {...}}``. The script needs a
 CUDA device and the repository checkout; without either it exits non-zero
 and prints no result.
 """
@@ -235,42 +247,74 @@ def _slice_scene():
     return build_scene([dragon], planes=planes, materials=mats)
 
 
+def _take_case(cols, idx, label, gpu, phase=2):
+    """``lane_take`` against ``lane_take_ref`` (torch.equal) on one map, then
+    the kernel's, the plain version's and ``index_select``'s times (the
+    library yardstick: one ``index_select`` of the planes with a zero lane
+    appended, to which the -1 entries point); returns (ms, plain ms,
+    library ms)."""
+    import torch
+
+    from atray_tpu_torch.kernels.lane_pack import lane_take, lane_take_ref
+
+    c, n = cols.shape
+    got = lane_take(cols, idx)
+    want = lane_take_ref(cols, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"lane_take != lane_take_ref (C={c}, N={n}, {label})")
+    del got
+    ms = _cuda_ms(lambda: lane_take(cols, idx), 20)
+    plain_ms = _cuda_ms(lambda: lane_take_ref(cols, idx), 5)
+    cols_z = torch.cat([cols, torch.zeros_like(cols[:, :1])], 1)
+    idx_z = torch.where(idx >= 0, idx, n).long()
+    if not torch.equal(torch.index_select(cols_z, 1, idx_z), want):
+        raise AssertionError(f"index_select != lane_take_ref (C={c}, N={n}, {label})")
+    lib_ms = _cuda_ms(lambda: torch.index_select(cols_z, 1, idx_z), 20)
+    print(f"phase {phase} lane_take C={c} N={n} {label}: equal, kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, index_select {lib_ms:.4f} ms [{gpu}]")
+    return ms, plain_ms, lib_ms
+
+
+def _offset_view(rng, c, n, dev, dtype):
+    """(C, N) planes on the card whose first word sits 4 bytes past a
+    16-byte boundary (a contiguous view of a larger buffer)."""
+    import numpy as np
+    import torch
+
+    if dtype == torch.int32:
+        flat = rng.integers(-2**31, 2**31, size=c * n + 1, dtype=np.int32)
+    else:
+        flat = rng.normal(size=c * n + 1).astype(np.float32)
+    view = torch.from_numpy(flat).to(dev)[1:].view(c, n)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
 def phase_lane_take(dev, gpu):
     import numpy as np
     import torch
 
-    from atray_tpu_torch.kernels.lane_pack import (
-        lane_take, lane_take_ref, pack_indices, unpack_indices)
+    from atray_tpu_torch.kernels.lane_pack import pack_indices, unpack_indices
 
-    n = 4_147_200
     rng = np.random.default_rng(11)
-    alive = torch.from_numpy(rng.random(n) < 0.7).to(dev)
-    scat = rng.permutation(n).astype(np.int32)
-    scat[rng.random(n) < 0.05] = -1
-    maps = {"pack": pack_indices(alive), "unpack": unpack_indices(alive),
-            "scattered": torch.from_numpy(scat).to(dev)}
     res = {}
-    for c in (15, 14, 3):
-        cols = torch.from_numpy(
-            rng.integers(-2**31, 2**31, size=(c, n), dtype=np.int32)).to(dev)
-        for name, idx in maps.items():
-            got = lane_take(cols, idx)
-            want = lane_take_ref(cols, idx)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"lane_take != lane_take_ref (C={c}, {name})")
-            ms = _cuda_ms(lambda: lane_take(cols, idx), 20)
-            plain_ms = _cuda_ms(lambda: lane_take_ref(cols, idx), 5)
-            # the library yardstick: one index_select of the planes with a
-            # zero lane appended, to which the -1 entries point
-            cols_z = torch.cat([cols, torch.zeros_like(cols[:, :1])], 1)
-            idx_z = torch.where(idx >= 0, idx, n).long()
-            if not torch.equal(torch.index_select(cols_z, 1, idx_z), want):
-                raise AssertionError(f"index_select != lane_take_ref (C={c}, {name})")
-            lib_ms = _cuda_ms(lambda: torch.index_select(cols_z, 1, idx_z), 20)
-            res[(c, name)] = (ms, plain_ms, lib_ms)
-            print(f"phase 2 lane_take C={c} N={n} {name}: equal, kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, index_select {lib_ms:.4f} ms [{gpu}]")
+    for n in (4_147_200, 65_553):           # a slice chunk; phase 13's ragged primaries
+        alive = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+        scat = rng.permutation(n).astype(np.int32)
+        scat[rng.random(n) < 0.05] = -1
+        maps = {"pack": pack_indices(alive), "unpack": unpack_indices(alive),
+                "scattered": torch.from_numpy(scat).to(dev)}
+        for c in (15, 14, 3):
+            cols = torch.from_numpy(
+                rng.integers(-2**31, 2**31, size=(c, n), dtype=np.int32)).to(dev)
+            for name, idx in maps.items():
+                res[(c, n, name)] = _take_case(cols, idx, name, gpu)
+        if n == 4_147_200:
+            for name in ("pack", "scattered"):
+                view = _offset_view(rng, 3, n, dev, torch.int32)
+                res[(3, n, f"{name} offset view")] = _take_case(
+                    view, maps[name], f"{name}, planes 4 bytes past a 16-byte boundary", gpu)
     return res
 
 
@@ -580,6 +624,10 @@ def _profile_frame(run, frame_s, gpu, label="phase 4", what="one slice frame"):
                       for k, v in groups.items() if v[1])
     print(f"{label} profile of {what}: device kernel time {total / 1e3:.3f} ms = "
           f"{parts}; busy share {total / 1e6 / frame_s:.3f} of the {frame_s:.4f} s run [{gpu}]")
+    lanes = [f"{k} {groups[k][0] / 1e3:.4f} ms over {groups[k][1]} launches"
+             for k in ("lane_take", "lane_scatter") if groups[k][1]]
+    if lanes:
+        print(f"{label} profile lane kernels: {', '.join(lanes)} [{gpu}]")
     for us, count, key in sorted(top, reverse=True)[:6]:
         print(f"{label} profile top torch kernel: {us / 1e3:.3f} ms, {count} launches, {key[:90]}")
 
@@ -628,16 +676,48 @@ def phase_identity(scene, accel, gpu):
           f"(torch.equal) [{gpu}]")
 
 
+def _scatter_case(cols, dst, label, gpu, exact=True):
+    """``lane_scatter`` against ``lane_scatter_ref`` (torch.equal, or within
+    1e-6 where duplicates sum in varying order), then the kernel's, the
+    plain version's and ``index_add_``'s times; returns (ms, plain ms,
+    library ms, bound, max |err|)."""
+    import torch
+
+    from atray_tpu_torch.kernels.lane_pack import lane_scatter, lane_scatter_ref
+
+    c, n = cols.shape
+    got = lane_scatter(cols, dst)
+    want = lane_scatter_ref(cols, dst)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not exact:
+        if not torch.allclose(got, want, rtol=1e-6, atol=1e-6):
+            raise AssertionError(f"lane_scatter != lane_scatter_ref beyond 1e-6 "
+                                 f"(C={c}, N={n}, {label}): {err}")
+    elif not torch.equal(got, want):
+        raise AssertionError(f"lane_scatter != lane_scatter_ref (C={c}, N={n}, {label})")
+    ok = dst >= 0
+    d_ok, v_ok = dst[ok].long(), cols[:, ok].contiguous()
+    ms = _cuda_ms(lambda: lane_scatter(cols, dst), 20)
+    plain_ms = _cuda_ms(lambda: lane_scatter_ref(cols, dst), 3)
+    lib_ms = _cuda_ms(lambda: torch.zeros_like(cols).index_add_(1, d_ok, v_ok), 20)
+    bound = _bound(2 * cols.nbytes + dst.nbytes)
+    print(f"phase 6 lane_scatter C={c} N={n} {label}: "
+          f"{'equal' if exact else 'allclose'} (max |err| {err:.3g}), "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, "
+          f"bound {bound[0]:.4f} ms by {bound[1]} [{gpu}]")
+    return ms, plain_ms, lib_ms, bound, err
+
+
 def phase_lane_scatter(dev, gpu):
     import numpy as np
     import torch
 
-    from atray_tpu_torch.kernels.lane_pack import (
-        lane_scatter, lane_scatter_ref, pack_indices, unpack_indices)
+    from atray_tpu_torch.kernels.lane_pack import pack_indices, unpack_indices
 
     rng = np.random.default_rng(13)
     res = {}
-    for n in (2_073_600, 4_147_200):
+    for n in (2_073_600, 4_147_200, 65_553):
         alive = torch.from_numpy(rng.random(n) < 0.7).to(dev)
         dup = (np.arange(n) // 2).astype(np.int32)
         dup[rng.random(n) < 0.05] = -1
@@ -646,27 +726,11 @@ def phase_lane_scatter(dev, gpu):
         for c in (12, 3):
             cols = torch.from_numpy(rng.normal(size=(c, n)).astype(np.float32)).to(dev)
             for name, dst in maps.items():
-                got = lane_scatter(cols, dst)
-                want = lane_scatter_ref(cols, dst)
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                if name == "duplicates":
-                    if not torch.allclose(got, want, rtol=1e-6, atol=1e-6):
-                        raise AssertionError(f"lane_scatter != lane_scatter_ref beyond 1e-6 "
-                                             f"(C={c}, N={n}, {name}): {err}")
-                elif not torch.equal(got, want):
-                    raise AssertionError(f"lane_scatter != lane_scatter_ref (C={c}, N={n}, {name})")
-                ok = dst >= 0
-                d_ok, v_ok = dst[ok].long(), cols[:, ok].contiguous()
-                ms = _cuda_ms(lambda: lane_scatter(cols, dst), 20)
-                plain_ms = _cuda_ms(lambda: lane_scatter_ref(cols, dst), 3)
-                lib_ms = _cuda_ms(lambda: torch.zeros_like(cols).index_add_(1, d_ok, v_ok), 20)
-                bound = _bound(2 * cols.nbytes + dst.nbytes)
-                res[(c, n, name)] = (ms, plain_ms, lib_ms, bound, err)
-                print(f"phase 6 lane_scatter C={c} N={n} {name}: "
-                      f"{'allclose' if name == 'duplicates' else 'equal'} (max |err| {err:.3g}), "
-                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, "
-                      f"bound {bound[0]:.4f} ms by {bound[1]} [{gpu}]")
+                res[(c, n, name)] = _scatter_case(cols, dst, name, gpu, name != "duplicates")
+        if n == 2_073_600:
+            view = _offset_view(rng, 12, n, dev, torch.float32)
+            res[(12, n, "pack offset view")] = _scatter_case(
+                view, maps["pack"], "pack, planes 4 bytes past a 16-byte boundary", gpu)
     return res
 
 
@@ -1081,7 +1145,8 @@ def _nan_lane_case(dev, rng):
 def _pair_kernels(acc, planes, alive, label, gpu):
     """Phase A and Phase B kernels vs their plain versions on one ray set
     (Phase B on the binned, capped pairs of Phase A's candidates); returns
-    {"a": (ms, plain ms, bound), "b": (...)}."""
+    {"a": (ms, plain ms, bound), "b": (...), "route": (slot keys, sort
+    permutation, cap, Phase B's result planes)}."""
     import torch
 
     from atray_tpu_torch.kernels.treelet_pairs import (
@@ -1109,7 +1174,7 @@ def _pair_kernels(acc, planes, alive, label, gpu):
           f"{a_plain:.1f} ms, bound {a_bound[0]:.4f} ms by {a_bound[1]} [{gpu}]")
 
     cap = pair_cap(n)
-    _, perm, ptid = bin_pairs(tids, acc.num_treelets, cap)
+    keys, perm, ptid = bin_pairs(tids, acc.num_treelets, cap)
     pairs = list(torch.index_select(torch.stack(planes), 1, perm[:cap] % n))
     got = treelet_pair_walk(acc, *pairs, ptid)
     visits = {}
@@ -1126,14 +1191,15 @@ def _pair_kernels(acc, planes, alive, label, gpu):
           f"{int((got['id'] >= 0).sum())} hits, {visits['records']} records tested): equal; "
           f"kernel {b_ms:.4f} ms, plain {b_plain:.1f} ms, bound {b_bound[0]:.4f} ms by "
           f"{b_bound[1]} [{gpu}]")
-    return {"a": (a_ms, a_plain, a_bound), "b": (b_ms, b_plain, b_bound)}
+    return {"a": (a_ms, a_plain, a_bound), "b": (b_ms, b_plain, b_bound),
+            "route": (keys, perm, cap, got)}
 
 
 def phase_pair_kernels(accel, dev, gpu):
     import numpy as np
     import torch
 
-    from atray_tpu_torch.kernels.treelet_pairs import treelet_pair_hit
+    from atray_tpu_torch.kernels.treelet_pairs import _words, pair_slots, treelet_pair_hit
     from atray_tpu_torch.kernels.wide_shade import wide_shade_planes
 
     rng = np.random.default_rng(15)
@@ -1144,6 +1210,17 @@ def phase_pair_kernels(accel, dev, gpu):
     planes = _planes_of(bo, bd)
     res = _pair_kernels(accel, planes, alive, "chunk bounce", gpu)
     _pair_kernels(*_nan_lane_case(dev, rng), "NaN-lane accel", gpu)
+
+    # phase 2's check on the pair path's own routing map: the slot map
+    # treelet_pair_hit builds from these candidates over Phase B's result
+    # words, zero-padded to the K*R slots as the path pads them
+    keys, perm, cap, walked = res.pop("route")
+    words = _words(walked)
+    words = torch.cat([words, words.new_zeros((6, keys.shape[0] - cap))], dim=1)
+    slot = pair_slots(keys, perm, cap)
+    _take_case(words, slot, f"pair routing ({int((slot >= 0).sum())} routed, cap {cap})", gpu,
+               phase=10)
+    del keys, perm, walked, words, slot
 
     got, unres = treelet_pair_hit(accel, *planes, alive)
     walk = wide_shade_planes(accel, *planes, alive)
@@ -1163,6 +1240,7 @@ def phase_pair_slice(scene, accel, walk_film, walk_frames, dev, gpu):
 
     from atray_tpu_torch.config import RenderSettings
     from atray_tpu_torch.core.camera import look_at_camera
+    from atray_tpu_torch.kernels.treelet_pairs import PAIR_K
     from atray_tpu_torch.render.rng import prng_key
     from atray_tpu_torch.render.wavefront import render
 
@@ -1216,7 +1294,14 @@ def phase_pair_slice(scene, accel, walk_film, walk_frames, dev, gpu):
     for pair in (True, False):
         s = dataclasses.replace(gset, pair_bounces=pair)
         p = _grad_leaves(scene)
-        render(scene.with_params(p), cam, s, prng_key(100), accel=accel).sum().backward()
+
+        def warm():
+            render(scene.with_params(p), cam, s, prng_key(100), accel=accel).sum().backward()
+
+        if pair:
+            route = _first_routing_take(warm)
+        else:
+            warm()
         torch.cuda.synchronize()
         _reset_counts()
         t0 = time.perf_counter()
@@ -1253,7 +1338,51 @@ def phase_pair_slice(scene, accel, walk_film, walk_frames, dev, gpu):
           f"{fwd['treelet_phase_a'][0]}/{fwd['treelet_phase_b'][0]}, after backward "
           f"{after['treelet_phase_a'][0]}/{after['treelet_phase_b'][0]}; vs the default "
           f"gradient, max |diff| / max |g|: {', '.join(worst)} [{gpu}]")
+
+    # phase 2's check on the gradient's own routing map (one 2,073,600-ray
+    # chunk: N = K x 2,073,600, where one plane and the index overflow L2),
+    # then the pair forward+backward's device time
+    words, slot = route
+    if slot.shape[0] != PAIR_K * gset.width * gset.height * gset.samples_per_pixel:
+        raise AssertionError(f"the pair gradient's routing take has {slot.shape[0]} lanes")
+    _take_case(words, slot, f"pair gradient routing ({int((slot >= 0).sum())} routed)", gpu,
+               phase=11)
+    del words, slot, route
+    s = dataclasses.replace(gset, pair_bounces=True)
+    p = _grad_leaves(scene)
+
+    def fwd_bwd():
+        loss = render(scene.with_params(p), cam, s, prng_key(6), accel=accel).sum()
+        torch.autograd.grad(loss, p.leaves())
+
+    _profile_frame(fwd_bwd, t_fb, gpu, "phase 11", "one pair forward+backward")
     return counts
+
+
+def _first_routing_take(run):
+    """Runs ``run()`` and returns the arguments of the pair path's first
+    ``lane_take`` (the routing take of ``treelet_pair_hit``'s first call:
+    its result words and slot map), cloned."""
+    import torch
+
+    from atray_tpu_torch.kernels import treelet_pairs
+
+    real, got = treelet_pairs.lane_take, []
+
+    def spy(words, slot):
+        if not got:
+            got.append((words.clone(), slot.clone()))
+        return real(words, slot)
+
+    treelet_pairs.lane_take = spy
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        treelet_pairs.lane_take = real
+    if not got:
+        raise AssertionError("the pair path made no routing take")
+    return got[0]
 
 
 def _packet_compare(pack, o, d, label, gpu):
@@ -1795,7 +1924,7 @@ def main() -> int:
     lineage = phase_lineage(walks, gpu)
     probes = phase_probes(dev, gpu)
 
-    lt_ms, lt_plain, lt_lib = lt[(14, "pack")]
+    lt_ms, lt_plain, lt_lib = lt[(14, 4_147_200, "pack")]
     n_chunk = 4_147_200
     ls_ms, ls_plain, ls_lib, ls_bound, _ = ls[(12, 2_073_600, "pack")]
     ls_err = max(v[4] for v in ls.values())

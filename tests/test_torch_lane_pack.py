@@ -19,6 +19,8 @@ from atray_tpu.kernels.lane_pack import unpack_indices as jax_unpack_indices  # 
 
 from atray_tpu_torch.kernels import _build  # noqa: E402
 from atray_tpu_torch.kernels.lane_pack import (  # noqa: E402
+    GROUP_BYTES,
+    L2_BYTES,
     lane_scatter,
     lane_scatter_p,
     lane_scatter_ref,
@@ -26,8 +28,10 @@ from atray_tpu_torch.kernels.lane_pack import (  # noqa: E402
     lane_take_p,
     lane_take_ref,
     pack_indices,
+    plane_group,
     unpack_indices,
 )
+from atray_tpu_torch.kernels.treelet_pairs import bin_pairs, pair_cap, pair_slots  # noqa: E402
 from atray_tpu_torch.render.wavefront import WaveState, _lane_pack_state  # noqa: E402
 
 LANE = 128
@@ -215,19 +219,28 @@ def test_lane_scatter_wrapper_checks_inputs(monkeypatch):
     assert _build.COUNTERS["lane_scatter"].plain_calls == before + 1
 
 
+def _offset_planes(flat, c, n):
+    """(c, n) planes of ``flat`` that start one word (4 bytes) past its
+    base: a contiguous view whose planes sit off 16-byte boundaries."""
+    return flat[1:1 + c * n].view(c, n)
+
+
 @pytest.mark.cuda
 def test_cuda_scatter_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(7)
-    n = 300_000
-    cols = torch.from_numpy(rng.normal(size=(12, n)).astype(np.float32)).cuda()
-    alive = torch.from_numpy(rng.random(n) < 0.6).cuda()
-    for idx in (pack_indices(alive), unpack_indices(alive)):
-        assert torch.equal(lane_scatter(cols, idx), lane_scatter_ref(cols, idx))
-    dup = torch.from_numpy((np.arange(n) // 3).astype(np.int32)).cuda()
-    assert torch.allclose(lane_scatter(cols, dup), lane_scatter_ref(cols, dup), rtol=1e-6,
-                          atol=1e-6)
+    for n in (300_000, 300_001, 65_553):          # N % 4 = 0, 1 and 1 (ragged)
+        cols = torch.from_numpy(rng.normal(size=(12, n)).astype(np.float32)).cuda()
+        view = _offset_planes(torch.from_numpy(rng.normal(size=12 * n + 1).astype(np.float32))
+                              .cuda(), 12, n)
+        alive = torch.from_numpy(rng.random(n) < 0.6).cuda()
+        for x in (cols, view):
+            for idx in (pack_indices(alive), unpack_indices(alive)):
+                assert torch.equal(lane_scatter(x, idx), lane_scatter_ref(x, idx))
+            dup = torch.from_numpy((np.arange(n) // 3).astype(np.int32)).cuda()
+            assert torch.allclose(lane_scatter(x, dup), lane_scatter_ref(x, dup), rtol=1e-6,
+                                  atol=1e-6)
 
 
 @pytest.mark.cuda
@@ -235,11 +248,134 @@ def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(6)
-    n = 300_000
-    cols = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, size=(14, n),
-                                         dtype=np.int64).astype(np.int32)).cuda()
-    alive = torch.from_numpy(rng.random(n) < 0.6).cuda()
+    for n in (300_000, 300_003, 65_553):          # N % 4 = 0, 3 and 1 (ragged)
+        words = rng.integers(-2 ** 31, 2 ** 31, size=14 * n + 1, dtype=np.int64).astype(np.int32)
+        cols = torch.from_numpy(words[:14 * n].reshape(14, n)).cuda()
+        view = _offset_planes(torch.from_numpy(words).cuda(), 14, n)
+        alive = torch.from_numpy(rng.random(n) < 0.6).cuda()
+        scat = rng.permutation(n).astype(np.int32)
+        scat[rng.random(n) < 0.05] = -1
+        for x in (cols, view):
+            for idx in (pack_indices(alive), unpack_indices(alive),
+                        torch.from_numpy(scat).cuda()):
+                assert torch.equal(lane_take(x, idx), lane_take_ref(x, idx))
+
+
+def _numpy_scatter(flat, dst):
+    out = np.zeros_like(flat)
+    ok = (dst >= 0) & (dst < flat.shape[1])
+    np.add.at(out.T, dst[ok], flat.T[ok])
+    return out
+
+
+@pytest.mark.parametrize("direction", ["take", "scatter"])
+@pytest.mark.parametrize("rem", [1, 2, 3])
+def test_plain_versions_at_ragged_n(rng, direction, rem):
+    # N % 4 != 0 (the card's kernels own lanes in fours): the plain
+    # versions, which the CPU path runs, against numpy on every map kind
+    c, n = 3, 4 * 250 + rem
+    flat = rng.normal(size=(c, n)).astype(np.float32)
+    alive = torch.from_numpy(rng.random(n) < 0.6)
     scat = rng.permutation(n).astype(np.int32)
-    scat[rng.random(n) < 0.05] = -1
-    for idx in (pack_indices(alive), unpack_indices(alive), torch.from_numpy(scat).cuda()):
-        assert torch.equal(lane_take(cols, idx), lane_take_ref(cols, idx))
+    scat[rng.random(n) < 0.1] = -1
+    dup = (np.arange(n) // 2).astype(np.int32)
+    for idx in (pack_indices(alive).numpy(), unpack_indices(alive).numpy(), scat, dup):
+        if direction == "take":
+            got = lane_take(torch.from_numpy(flat), torch.from_numpy(idx)).numpy()
+            np.testing.assert_array_equal(got, _numpy_take(flat, idx))
+        else:
+            got = lane_scatter(torch.from_numpy(flat), torch.from_numpy(idx)).numpy()
+            np.testing.assert_allclose(got, _numpy_scatter(flat, idx), rtol=1e-6, atol=1e-6)
+
+
+def _pair_route(rng, r=3000, k=4, treelets=37):
+    """The pair path's routing: random candidates (-1 = empty slot, each
+    ray's candidates distinct), binned by the port's ``bin_pairs`` and
+    capped; returns (slot map, cap, keys)."""
+    tids = np.full((k, r), -1, np.int32)
+    for ray in range(r):
+        m = rng.integers(0, k + 1)
+        tids[:m, ray] = rng.choice(treelets, size=m, replace=False)
+    tids = torch.from_numpy(tids)
+    cap = pair_cap(r, k, 0.5)
+    keys, perm, _ = bin_pairs(tids, treelets, cap)
+    return pair_slots(keys, perm, cap), cap, keys
+
+
+def test_pair_routing_map_take_matches_numpy(rng):
+    slot, cap, keys = _pair_route(rng)
+    n = slot.shape[0]
+    # the slot map is the capped inverse of a stable sort of the slot keys
+    order = np.argsort(keys.numpy(), kind="stable")
+    inv = np.empty(n, np.int64)
+    inv[order] = np.arange(n)
+    np.testing.assert_array_equal(slot.numpy(), np.where(inv < cap, inv, -1))
+    assert 0 < int((slot >= 0).sum()) <= cap
+    # the route: result words of the first cap sorted slots, zero-padded to K*R
+    words = np.zeros((6, n), np.int32)
+    words[:, :cap] = rng.integers(-2 ** 31, 2 ** 31, size=(6, cap), dtype=np.int64)
+    got = lane_take(torch.from_numpy(words), slot).numpy()
+    np.testing.assert_array_equal(got, _numpy_take(words, slot.numpy()))
+
+
+def _transpose_maps(rng, n):
+    alive = torch.from_numpy(rng.random(n) < 0.55)
+    dup = (np.arange(n) // 2).astype(np.int32)
+    dup[rng.random(n) < 0.05] = -1
+    return {"pack": pack_indices(alive), "unpack": unpack_indices(alive),
+            "pair": _pair_route(rng, r=n // 4)[0], "duplicates": torch.from_numpy(dup)}
+
+
+@pytest.mark.parametrize("name", ["pack", "unpack", "pair", "duplicates"])
+def test_take_and_scatter_are_transposes(rng, name):
+    # <take(x, idx), y> == <x, scatter(y, idx)>; small integers keep every
+    # float32 sum exact, so the two sides must agree exactly
+    idx = _transpose_maps(rng, 4 * 1031)[name]
+    c, n = 3, idx.shape[0]
+    x = rng.integers(-8, 9, size=(c, n)).astype(np.float32)
+    y = rng.integers(-8, 9, size=(c, n)).astype(np.float32)
+    tx = lane_take(torch.from_numpy(x), idx).numpy().astype(np.float64)
+    sy = lane_scatter(torch.from_numpy(y), idx).numpy().astype(np.float64)
+    assert np.sum(tx * y) == np.sum(x * sy)
+    assert np.any(tx != 0) and np.any(sy != 0)
+
+
+def test_injective_scatter_of_negative_zero_gives_positive_zero(rng):
+    # the add onto +0.0 (as the kernel's atomics do): -0.0 + +0.0 = +0.0
+    n = 1031
+    cols = torch.full((2, n), -0.0)
+    for dst in (torch.from_numpy(rng.permutation(n).astype(np.int32)),
+                pack_indices(torch.from_numpy(rng.random(n) < 0.5))):
+        out = lane_scatter(cols, dst).numpy()
+        assert not np.signbit(out).any()
+        assert not np.any(out)
+
+
+def test_plane_group_fits_the_budget():
+    chunk = 1920 * 1080 * 2
+    # two planes of a slice chunk, four of the gradient chunk, all planes
+    # where one plane and the index overflow L2 (the pair routing maps of
+    # the slice chunk and of the gradient chunk), and all planes of a small
+    # launch
+    assert plane_group(chunk, 14) == 2
+    assert plane_group(chunk // 2, 12) == 4
+    assert plane_group(4 * chunk, 6) == 6
+    assert plane_group(2 * chunk, 6) == 6
+    assert plane_group(65_553, 3) == 3
+    assert plane_group(65_553, 15) == 15
+    assert plane_group(chunk, 1) == 1
+    assert plane_group(0, 3) == 3
+
+
+def test_plane_group_bounds():
+    for n in (1, 3, 1000, 1024, 65_553, 2_073_600, 4_147_200, 6_553_600, 6_553_601,
+              8_294_400, 8_388_608, 8_388_609, 16_588_800):
+        for c in (1, 2, 3, 6, 12, 14, 15):
+            g = plane_group(n, c)
+            assert 1 <= g <= c
+            if 8 * n > L2_BYTES:
+                assert g == c                  # one group: the index read once
+            else:
+                assert g * 4 * n <= GROUP_BYTES
+                assert (g + 1) * 4 * n <= L2_BYTES or g == c
+                assert g == c or (g + 1) * 4 * n > GROUP_BYTES
