@@ -22,7 +22,8 @@ kernel: one 256-byte record per wide node (``node_records``, from
 ``cboxes``, ``clinks`` and ``caxis``) and the leaves' p0, e1, e2 as planes
 (``leaf_planes``, from ``tris``), built at first use on each accel object;
 both builders live in ``accel/wide.py``, whose ``WideBVH`` derives the same
-tables from its stride-16 records.
+tables from its stride-16 records. ``tboxes_ordered`` (``ordered_boxes``,
+from ``tboxes``) is the pair path's Phase A table, built the same way.
 Every table change makes a new object (``to``, ``refit_shaded``), so they
 are never stale; the original tables stay for the plain versions and the
 other kernels.
@@ -94,6 +95,22 @@ class ShadedWideBVH(_Leaves):
         """``leaf_planes`` of this accel's stride-32 records, built once
         per object."""
         return leaf_planes(self.tris, self.leaf_size, STRIDE32)
+
+    @functools.cached_property
+    def tboxes_ordered(self) -> torch.Tensor:
+        """``ordered_boxes`` of this accel's treelet boxes, built once per
+        object."""
+        return ordered_boxes(self.tboxes)
+
+
+def ordered_boxes(tboxes: torch.Tensor) -> torch.Tensor:
+    """``tboxes`` with each box's lo and hi plane of an axis replaced by
+    their NaN-propagating minimum and maximum (a NaN in either makes both
+    NaN), so every box is NaN or has lo <= hi; the min/max slab test gives
+    the same distances on both tables. Floats 48-127 of a row are kept."""
+    lo, hi = tboxes[:, 0:24], tboxes[:, 24:48]
+    return torch.cat([torch.minimum(lo, hi), torch.maximum(lo, hi), tboxes[:, 48:]],
+                     dim=1).contiguous()
 
 
 def _treelet_boxes_np(tris: np.ndarray, leaf_size: int, leaves_per_treelet: int):

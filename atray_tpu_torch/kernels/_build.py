@@ -56,8 +56,10 @@ _SIGNATURES = {
         [_P] * 7 + [ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int] + [_P] * 3
     ),
     "atray_treelet_phase_a_max_k": [],
+    # pairs, ptid, n, leaf planes, shaded records, leaf size, leaves a
+    # treelet, 6 outputs, stream
     "atray_treelet_phase_b": (
-        [_P] * 7 + [ctypes.c_longlong, _P] + [ctypes.c_int] * 3 + [_P] * 7
+        [_P] * 7 + [ctypes.c_longlong, _P, _P] + [ctypes.c_int] * 2 + [_P] * 7
     ),
     "atray_ppacket": (
         [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 5

@@ -15,6 +15,17 @@ def inv_dir(d: torch.Tensor) -> torch.Tensor:
     return torch.where(zero, 1.0e30, 1.0 / torch.where(zero, 1.0, d))
 
 
+def record_det(rdx, rdy, rdz, rec: torch.Tensor):
+    """Möller–Trumbore's p = d x e2 and det = e1 . p of rays against leaf
+    records (``record_hit``'s layout): (px, py, pz, det)."""
+    e1x, e1y, e1z = rec[..., 3], rec[..., 4], rec[..., 5]
+    e2x, e2y, e2z = rec[..., 6], rec[..., 7], rec[..., 8]
+    pvx = rdy * e2z - rdz * e2y
+    pvy = rdz * e2x - rdx * e2z
+    pvz = rdx * e2y - rdy * e2x
+    return pvx, pvy, pvz, e1x * pvx + e1y * pvy + e1z * pvz
+
+
 def record_hit(rox, roy, roz, rdx, rdy, rdz, rec: torch.Tensor):
     """One-sided Möller–Trumbore (det > 1e-12) of rays against leaf records
     whose last axis holds p0 at 0:3, e1 at 3:6 and e2 at 6:9; the ray
@@ -22,10 +33,7 @@ def record_hit(rox, roy, roz, rdx, rdy, rdz, rec: torch.Tensor):
     ``hit`` leaves out the caller's t < best_t."""
     e1x, e1y, e1z = rec[..., 3], rec[..., 4], rec[..., 5]
     e2x, e2y, e2z = rec[..., 6], rec[..., 7], rec[..., 8]
-    pvx = rdy * e2z - rdz * e2y
-    pvy = rdz * e2x - rdx * e2z
-    pvz = rdx * e2y - rdy * e2x
-    det = e1x * pvx + e1y * pvy + e1z * pvz
+    pvx, pvy, pvz, det = record_det(rdx, rdy, rdz, rec)
     valid = det > 1.0e-12
     inv_det = torch.where(valid, 1.0 / torch.where(valid, det, 1.0), 0.0)
     tvx = rox - rec[..., 0]

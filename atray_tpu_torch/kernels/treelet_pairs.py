@@ -26,8 +26,10 @@ to a prefix and re-walked by ``wide_shade``, whose result they take. So
 ``treelet_pair_hit`` returns what ``wide_shade_planes`` returns, up to
 which of two coincident faces wins an exact tie.
 
-On CUDA tensors Phase A launches ``csrc/treelet_phase_a.cu`` and Phase B
-``csrc/treelet_phase_b.cu``; on CPU tensors they run
+On CUDA tensors Phase A launches ``csrc/treelet_phase_a.cu`` (over
+``accel.tboxes_ordered``, built at first use) and Phase B
+``csrc/treelet_phase_b.cu`` (over the leaf planes ``accel.cleaves``, built
+at first use, and the winner's shaded record); on CPU tensors they run
 ``treelet_candidates_ref`` and ``treelet_pair_walk_ref``. The glue makes no
 host sync. The TPU knobs (``block_sub``, ``n_inter``, ``multi_pop``,
 ``interpret``, ``ATRAY_PAIR_K``, ``ATRAY_PAIR_CAP``) are not carried;
@@ -43,7 +45,7 @@ import torch
 from atray_tpu_torch.accel.shaded import RECS_PER_ROW, STRIDE32, ShadedWideBVH
 from atray_tpu_torch.core.intersect import INF
 from atray_tpu_torch.kernels import _build
-from atray_tpu_torch.kernels._plain import inv_dir, record_hit
+from atray_tpu_torch.kernels._plain import inv_dir, record_det, record_hit
 from atray_tpu_torch.kernels.lane_pack import lane_take, pack_indices, unpack_indices
 from atray_tpu_torch.kernels.wide_shade import wide_shade_planes
 
@@ -84,7 +86,11 @@ def _check_table(accel: ShadedWideBVH, name: str, dev: torch.device) -> torch.Te
 def treelet_candidates(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz, alive,
                        k_slots: int = PAIR_K) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase A: (tids (K, R) int32, -1 = none, nearest first; bound (R,)
-    float32, the (K+1)-th entry distance or 3e38). Dead rays have none."""
+    float32, the (K+1)-th entry distance or 3e38). Dead rays have none.
+    The kernel reads ``accel.tboxes_ordered`` (built at first use) and
+    takes each box's near and far plane by the signs of the ray's
+    direction, which gives the plain version's min/max pairs for any
+    ``tboxes``."""
     dev = _check_planes((ox, oy, oz, dx, dy, dz), alive, torch.bool)
     tboxes = _check_table(accel, "tboxes", dev)
     if accel.num_treelets <= 0 or tboxes.shape[0] * 8 < accel.num_treelets:
@@ -93,6 +99,9 @@ def treelet_candidates(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz, alive,
         raise ValueError(f"k_slots must be in 1..{MAX_K}")
     if dev.type == "cpu":
         return treelet_candidates_ref(accel, ox, oy, oz, dx, dy, dz, alive, k_slots)
+    tboxes = accel.tboxes_ordered                # built at first use
+    if tboxes.data_ptr() % 16:
+        raise ValueError("accel.tboxes_ordered must be 16-byte aligned")
     lib = _build.load()
     if lib.atray_treelet_phase_a_max_k() != MAX_K:
         raise RuntimeError("MAX_K disagrees with the compiled kernel")
@@ -171,6 +180,12 @@ def treelet_pair_walk(accel: ShadedWideBVH, pox, poy, poz, pdx, pdy, pdz,
         raise ValueError("accel.tris is shorter than its treelets")
     if dev.type == "cpu":
         return treelet_pair_walk_ref(accel, pox, poy, poz, pdx, pdy, pdz, ptid)
+    leaves = accel.cleaves                   # the leaf planes, built at first use
+    rpl = accel.rows_per_leaf
+    if leaves.shape != (tris.shape[0] // rpl, 9, RECS_PER_ROW * rpl):
+        raise ValueError("accel.cleaves does not match accel.tris")
+    if leaves.data_ptr() % 16 or tris.data_ptr() % 16:
+        raise ValueError("accel.cleaves and accel.tris must be 16-byte aligned")
     lib = _build.load()
     n = pox.shape[0]
     out = {k: torch.empty(n, dtype=torch.float32, device=dev) for k in ("t", "nx", "ny", "nz")}
@@ -180,8 +195,8 @@ def treelet_pair_walk(accel: ShadedWideBVH, pox, poy, poz, pdx, pdy, pdz,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.atray_treelet_phase_b(
             pox.data_ptr(), poy.data_ptr(), poz.data_ptr(), pdx.data_ptr(), pdy.data_ptr(),
-            pdz.data_ptr(), ptid.data_ptr(), n, tris.data_ptr(), accel.leaf_size,
-            accel.rows_per_leaf, lpt, out["t"].data_ptr(), out["id"].data_ptr(),
+            pdz.data_ptr(), ptid.data_ptr(), n, leaves.data_ptr(), tris.data_ptr(),
+            accel.leaf_size, lpt, out["t"].data_ptr(), out["id"].data_ptr(),
             out["nx"].data_ptr(), out["ny"].data_ptr(), out["nz"].data_ptr(),
             out["mat"].data_ptr(), stream)
     COUNTER_B.launches += 1
@@ -194,7 +209,9 @@ def treelet_pair_walk_ref(accel: ShadedWideBVH, pox, poy, poz, pdx, pdy, pdz, pt
     """Plain PyTorch Phase B: the kernel's record loop, one record position
     of the treelet per step for every live pair, with ``wide_shade``'s
     Möller–Trumbore and normal op order and a strict t < best_t. With a
-    ``visits`` dict it adds the records tested ("records")."""
+    ``visits`` dict it adds the records tested ("records"), those of them
+    that face the ray (det > 1e-12, "front") and those of these with u in
+    [0, 1] ("u_in")."""
     COUNTER_B.plain_calls += 1
     dev = pox.device
     n = pox.shape[0]
@@ -215,11 +232,17 @@ def treelet_pair_walk_ref(accel: ShadedWideBVH, pox, poy, poz, pdx, pdy, pdz, pt
     best_id = torch.full((m,), -1, dtype=i32, device=dev)
     bn = torch.zeros((3, m), dtype=f32, device=dev)
     best_mat = torch.zeros((m,), dtype=f32, device=dev)
+    n_front = torch.zeros((), dtype=torch.int64, device=dev)
+    n_u_in = torch.zeros((), dtype=torch.int64, device=dev)
     for leaf in range(accel.leaves_per_treelet):
         for kk in range(accel.leaf_size):
             ridx = (first + leaf * rpl) * RECS_PER_ROW + kk
             rec = recs[ridx]                                       # (m, 32)
             uu, vv, tt, hit = record_hit(rox, roy, roz, rdx, rdy, rdz, rec)
+            if visits is not None:
+                front = record_det(rdx, rdy, rdz, rec)[3] > 1.0e-12
+                n_front += front.sum()
+                n_u_in += (front & (uu >= 0.0) & (uu <= 1.0)).sum()
             hit = hit & (tt < best_t)
             w0 = 1.0 - uu - vv
             best_t = torch.where(hit, tt, best_t)
@@ -230,6 +253,8 @@ def treelet_pair_walk_ref(accel: ShadedWideBVH, pox, poy, poz, pdx, pdy, pdz, pt
             best_mat = torch.where(hit, rec[:, 19], best_mat)
     if visits is not None:
         visits["records"] = visits.get("records", 0) + m * accel.leaves_per_treelet * accel.leaf_size
+        visits["front"] = visits.get("front", 0) + int(n_front)
+        visits["u_in"] = visits.get("u_in", 0) + int(n_u_in)
     rlen = torch.rsqrt(torch.clamp_min(bn[0] * bn[0] + bn[1] * bn[1] + bn[2] * bn[2], 1.0e-20))
     t_out[live] = best_t
     id_out[live] = best_id

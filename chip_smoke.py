@@ -76,16 +76,28 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
    phase 3's rules, ``wide_exact`` on the ``make_accel`` refit to them
    under phase 7's rules, the device time of rebuilding the refit
    ``make_accel``'s derived tables, and a profiled ``make_accel`` step;
-10. the pair-binned traversal's kernels on the slice accel (776 treelets)
-    at one chunk's bounce rays (phase 3's hemisphere rays from the
-    4,147,200 primaries' hit points): Phase A (``treelet_candidates``) and
-    Phase B (``treelet_pair_walk``, on the binned and capped pairs) against
-    their plain versions, equal (torch.equal); the same on a small accel
-    whose last treelet row has NaN pad lanes; ``lane_take`` on the pair
-    path's routing map (the slot map ``treelet_pair_hit`` builds from the
-    chunk's candidates, C = 6, N = K x 4,147,200) under phase 2's rules;
-    then ``treelet_pair_hit`` against ``wide_shade`` on those rays under
-    phase 3's rules;
+10. the pair-binned traversal's kernels, each with its ptxas registers and
+    spills (Phase A at K = 1, 4, 8), against their plain versions, equal
+    (torch.equal), no pad lane a candidate: Phase A (``treelet_candidates``)
+    and Phase B (``treelet_pair_walk``, on the binned and capped pairs) on
+    the slice accel (776 treelets) at one chunk's bounce rays (phase 3's
+    hemisphere rays from the 4,147,200 primaries' hit points), timed, and
+    on a small accel whose last treelet row has NaN pad lanes; Phase A at
+    K = 1 and 8 on 65,536 of the chunk's live bounce rays, and at K = 1, 4,
+    8 on those rays with about a third of their direction components zero
+    and, in another set, denormal (1 / d infinite; held on the card only,
+    where nothing flushes them), and at K = 4 on boxes with a third of
+    their lo and hi planes swapped (the candidates must not change); both
+    kernels' bounds count float32 instructions at the issue rate, Phase
+    B's from the plain version's counts; both kernels on the pair frame's own
+    launches at bounces 1 (full width) and 2 (sorted, packed) of one chunk,
+    captured from ``render()``; Phase B on the chunk's pairs shuffled with
+    an eighth of the slots dead; both on the slice mesh at 2 leaves a
+    treelet, whose box rows span several shared-memory tiles;
+    ``lane_take`` on the pair path's routing map (the slot map
+    ``treelet_pair_hit`` builds from the chunk's candidates, C = 6, N = K x
+    4,147,200) under phase 2's rules; then ``treelet_pair_hit`` against
+    ``wide_shade`` on the chunk's bounce rays under phase 3's rules;
 11. the slice with ``pair_bounces=True``: one warm-up frame and two timed
     ones with phase 4's keys; the film must equal phase 4's film of the
     same key (pixels that differ are counted, at most 0.05%: an exact tie
@@ -156,18 +168,26 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 peak outside the tensor cores
 OPS_PER_CHILD_BOX = 25        # slab test of one child box (subs, muls, min/max, compares)
 OPS_PER_RECORD = 52           # Moller-Trumbore test of one leaf record
-OPS_PER_TREELET = 45          # Phase A: slab test, clamp and insertion of one treelet box
+# Phases A and B count float32 instructions, each taken at the card's issue
+# rate of one a lane a clock (half the FMA peak, which counts an FMA as two
+# operations); their reciprocal runs on its own pipe and counts as one.
+FP32_INSTR_PER_S = FP32_OPS_PER_S / 2
+INSTR_PER_TREELET = 19        # Phase A, a (live ray, treelet) test: 6 sub, 6 mul, 4 min/max, 3 hit and last-slot
+INSTR_PER_RECORD = 15         # Phase B, every record: d x e2 (6 mul, 3 sub), det (3 mul, 2 add), its test
+INSTR_PER_FRONT = 12          # a record facing the ray: o - p0 (3 sub), 1 / det, u (4 mul, 2 add), its test (2)
+INSTR_PER_U_IN = 26           # u in [0, 1]: q (6 mul, 3 sub), v and t (4 mul, 2 add each), the hit test (5)
 OPS_PER_NODE = 25             # slab test of one binary node box (ppacket)
 TIE_PIXELS = 0.0005           # share of film pixels an exact tie may change
 FRAME_CHUNK = 2               # phase 3's chunk of the slice frame
 FRAME_BOUNCES = (1, 2)        # bounce 1 runs at full width; bounce 2 on, sorted and packed
 
 
-def _bound(nbytes: float, ops: float = 0.0):
+def _bound(nbytes: float, ops: float = 0.0, instr: float = 0.0):
     """(least ms, "bytes" or "operations"): the larger of the bytes over
-    the memory rate and the float32 operations over the peak rate."""
+    the memory rate and the float32 operations over the peak rate, or the
+    float32 instructions over their issue rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3 + instr / FP32_INSTR_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -538,6 +558,51 @@ def _frame_launches(scene, accel):
     chunks = -(-(w * h * spp) // settings.ray_chunk)
     if len(calls) != chunks * settings.bounce_limit or sorted(got) != list(FRAME_BOUNCES):
         raise AssertionError(f"the frame launched wide_shade {len(calls)} times")
+    return got
+
+
+def _pair_frame_launches(scene, accel):
+    """The arguments ``render(..., pair_bounces=True)`` hands Phase A and
+    Phase B at ``FRAME_BOUNCES`` of chunk ``FRAME_CHUNK`` (phase 11's
+    settings, key 0), cloned: {bounce: ([ox, oy, oz, dx, dy, dz, alive],
+    [pox, poy, poz, pdx, pdy, pdz, ptid])}. The pair path takes bounces 1
+    to 4 of each chunk; bounce 1 is at full width, bounce 2 sorted and
+    packed."""
+    import torch
+
+    from atray_tpu_torch.kernels import treelet_pairs
+    from atray_tpu_torch.render import wavefront
+    from atray_tpu_torch.render.rng import prng_key
+
+    settings, cam = _slice_settings()
+    settings = dataclasses.replace(settings, pair_bounces=True)
+    per_chunk = settings.bounce_limit - 1
+    real_a, real_b = treelet_pairs.treelet_candidates, treelet_pairs.treelet_pair_walk
+    calls, got = [], {}
+
+    def spy_a(acc, *args, **kw):
+        chunk, b = divmod(len(calls), per_chunk)
+        calls.append((chunk, b + 1))
+        if chunk == FRAME_CHUNK and b + 1 in FRAME_BOUNCES:
+            got[b + 1] = ([a.clone() for a in args[:7]],)
+        return real_a(acc, *args, **kw)
+
+    def spy_b(acc, *args, **kw):
+        chunk, b = calls[-1]
+        if chunk == FRAME_CHUNK and b in FRAME_BOUNCES:
+            got[b] += ([a.clone() for a in args[:7]],)
+        return real_b(acc, *args, **kw)
+
+    treelet_pairs.treelet_candidates, treelet_pairs.treelet_pair_walk = spy_a, spy_b
+    try:
+        wavefront.render(scene, cam, settings, prng_key(0), accel=accel)
+        torch.cuda.synchronize()
+    finally:
+        treelet_pairs.treelet_candidates, treelet_pairs.treelet_pair_walk = real_a, real_b
+    (w, h), spp = settings.resolution, settings.samples_per_pixel
+    chunks = -(-(w * h * spp) // settings.ray_chunk)
+    if len(calls) != chunks * per_chunk or sorted(got) != list(FRAME_BOUNCES):
+        raise AssertionError(f"the pair frame launched Phase A {len(calls)} times")
     return got
 
 
@@ -1142,40 +1207,45 @@ def _nan_lane_case(dev, rng):
     return host.to(dev), _planes_of(torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)), alive
 
 
-def _pair_kernels(acc, planes, alive, label, gpu):
-    """Phase A and Phase B kernels vs their plain versions on one ray set
-    (Phase B on the binned, capped pairs of Phase A's candidates); returns
-    {"a": (ms, plain ms, bound), "b": (...), "route": (slot keys, sort
-    permutation, cap, Phase B's result planes)}."""
+def _phase_a_case(acc, planes, alive, label, gpu, k=None, time_plain=True):
+    """Phase A kernel vs its plain version on one ray set (torch.equal, no
+    pad lane a candidate); returns (tids, (ms, plain ms, bound))."""
     import torch
 
     from atray_tpu_torch.kernels.treelet_pairs import (
-        PAIR_K, bin_pairs, pair_cap, treelet_candidates, treelet_candidates_ref,
-        treelet_pair_walk, treelet_pair_walk_ref)
+        PAIR_K, treelet_candidates, treelet_candidates_ref)
 
+    k = PAIR_K if k is None else k
     n = alive.shape[0]
-    tids, bound = treelet_candidates(acc, *planes, alive, PAIR_K)
-    want = treelet_candidates_ref(acc, *planes, alive, PAIR_K)
+    tids, bound = treelet_candidates(acc, *planes, alive, k)
+    want = treelet_candidates_ref(acc, *planes, alive, k)
     torch.cuda.synchronize()
     if not (torch.equal(tids, want[0]) and torch.equal(bound, want[1])):
         raise AssertionError(f"treelet_phase_a {label}: kernel != plain version")
     if int(tids.max()) >= acc.num_treelets:
         raise AssertionError(f"treelet_phase_a {label}: a pad lane became a candidate")
-    a_ms = _cuda_ms(lambda: treelet_candidates(acc, *planes, alive, PAIR_K), 20)
-    a_plain = _host_ms(lambda: treelet_candidates_ref(acc, *planes, alive, PAIR_K))
+    ms = _cuda_ms(lambda: treelet_candidates(acc, *planes, alive, k), 20)
+    plain = _host_ms(lambda: treelet_candidates_ref(acc, *planes, alive, k)) if time_plain else None
     live = int(alive.sum())
     t_pad = 8 * acc.tboxes.shape[0]
-    a_bound = _bound(sum(p.nbytes for p in planes) + alive.nbytes + acc.tboxes.nbytes
-                     + tids.nbytes + bound.nbytes, live * t_pad * OPS_PER_TREELET)
-    n_cand = int((tids >= 0).sum())
+    bnd = _bound(sum(p.nbytes for p in planes) + alive.nbytes + acc.tboxes.nbytes
+                 + tids.nbytes + bound.nbytes,
+                 instr=live * acc.num_treelets * INSTR_PER_TREELET)
+    plain_txt = f"plain {plain:.1f} ms, " if plain is not None else ""
     print(f"phase 10 treelet_phase_a {label}: {n} rays ({live} live), {acc.num_treelets} "
-          f"treelets ({t_pad} with pads), K={PAIR_K}: equal, {n_cand} candidates, "
-          f"{int((bound < 1e30).sum())} rays with a (K+1)-th; kernel {a_ms:.4f} ms, plain "
-          f"{a_plain:.1f} ms, bound {a_bound[0]:.4f} ms by {a_bound[1]} [{gpu}]")
+          f"treelets ({t_pad} with pads, {acc.tboxes.shape[0]} rows), K={k}: equal, "
+          f"{int((tids >= 0).sum())} candidates, {int((bound < 1e30).sum())} rays with a "
+          f"(K+1)-th; kernel {ms:.4f} ms, {plain_txt}bound {bnd[0]:.4f} ms by {bnd[1]} [{gpu}]")
+    return tids, (ms, plain, bnd)
 
-    cap = pair_cap(n)
-    keys, perm, ptid = bin_pairs(tids, acc.num_treelets, cap)
-    pairs = list(torch.index_select(torch.stack(planes), 1, perm[:cap] % n))
+
+def _phase_b_case(acc, pairs, ptid, label, gpu, time_plain=True):
+    """Phase B kernel vs its plain version on one set of pair slots
+    (torch.equal on all six planes); returns (planes, (ms, plain ms, bound))."""
+    import torch
+
+    from atray_tpu_torch.kernels.treelet_pairs import treelet_pair_walk, treelet_pair_walk_ref
+
     got = treelet_pair_walk(acc, *pairs, ptid)
     visits = {}
     ref = treelet_pair_walk_ref(acc, *pairs, ptid, visits=visits)
@@ -1183,38 +1253,148 @@ def _pair_kernels(acc, planes, alive, label, gpu):
     for key in got:
         if not torch.equal(got[key], ref[key]):
             raise AssertionError(f"treelet_phase_b {label}: kernel != plain version ({key})")
-    b_ms = _cuda_ms(lambda: treelet_pair_walk(acc, *pairs, ptid), 20)
-    b_plain = _host_ms(lambda: treelet_pair_walk_ref(acc, *pairs, ptid))
-    b_bound = _bound(sum(p.nbytes for p in pairs) + ptid.nbytes + acc.tris.nbytes
-                     + sum(v.nbytes for v in got.values()), visits["records"] * OPS_PER_RECORD)
-    print(f"phase 10 treelet_phase_b {label}: {cap} pair slots ({int((ptid >= 0).sum())} live, "
-          f"{int((got['id'] >= 0).sum())} hits, {visits['records']} records tested): equal; "
-          f"kernel {b_ms:.4f} ms, plain {b_plain:.1f} ms, bound {b_bound[0]:.4f} ms by "
-          f"{b_bound[1]} [{gpu}]")
-    return {"a": (a_ms, a_plain, a_bound), "b": (b_ms, b_plain, b_bound),
-            "route": (keys, perm, cap, got)}
+    ms = _cuda_ms(lambda: treelet_pair_walk(acc, *pairs, ptid), 20)
+    plain = _host_ms(lambda: treelet_pair_walk_ref(acc, *pairs, ptid)) if time_plain else None
+    bnd = _bound(sum(p.nbytes for p in pairs) + ptid.nbytes + acc.tris.nbytes
+                 + sum(v.nbytes for v in got.values()),
+                 instr=visits["records"] * INSTR_PER_RECORD + visits["front"] * INSTR_PER_FRONT
+                 + visits["u_in"] * INSTR_PER_U_IN)
+    plain_txt = f"plain {plain:.1f} ms, " if plain is not None else ""
+    print(f"phase 10 treelet_phase_b {label}: {ptid.shape[0]} pair slots "
+          f"({int((ptid >= 0).sum())} live, {int((got['id'] >= 0).sum())} hits, "
+          f"{visits['records']} records tested, {visits['front']} facing, {visits['u_in']} with u in "
+          f"[0, 1]): equal; kernel {ms:.4f} ms, {plain_txt}bound "
+          f"{bnd[0]:.4f} ms by {bnd[1]} [{gpu}]")
+    return got, (ms, plain, bnd)
 
 
-def phase_pair_kernels(accel, dev, gpu):
+def _pair_kernels(acc, planes, alive, label, gpu, time_plain=True):
+    """Phase A and Phase B kernels vs their plain versions on one ray set
+    (Phase B on the binned, capped pairs of Phase A's candidates); returns
+    {"a": (ms, plain ms, bound), "b": (...), "route": (slot keys, sort
+    permutation, cap, Phase B's pair planes, pair treelets, result planes)}."""
+    import torch
+
+    from atray_tpu_torch.kernels.treelet_pairs import bin_pairs, pair_cap
+
+    n = alive.shape[0]
+    tids, a = _phase_a_case(acc, planes, alive, label, gpu, time_plain=time_plain)
+    cap = pair_cap(n)
+    keys, perm, ptid = bin_pairs(tids, acc.num_treelets, cap)
+    pairs = list(torch.index_select(torch.stack(planes), 1, perm[:cap] % n))
+    got, b = _phase_b_case(acc, pairs, ptid, label, gpu, time_plain=time_plain)
+    return {"a": a, "b": b, "route": (keys, perm, cap, pairs, ptid, got)}
+
+
+def _edge_directions(planes, alive, rng, value):
+    """The rays ``planes`` with about a third of their direction components
+    set to ``value`` (0: zero components; 1e-40: denormals, whose inverse
+    is infinite), never all three of a ray."""
     import numpy as np
     import torch
 
-    from atray_tpu_torch.kernels.treelet_pairs import _words, pair_slots, treelet_pair_hit
+    n = alive.shape[0]
+    m = rng.random((n, 3)) < 0.34
+    m[m.all(axis=1), 0] = False
+    sign = np.where(rng.random((n, 3)) < 0.5, -1.0, 1.0).astype(np.float32)
+    out = list(planes[:3])
+    for a in range(3):
+        sub = torch.from_numpy(np.float32(value) * sign[:, a]).to(alive.device)
+        out.append(torch.where(torch.from_numpy(m[:, a]).to(alive.device), sub,
+                               planes[3 + a]).contiguous())
+    return out
+
+
+def _swapped_boxes(acc, rng):
+    """``acc`` with the lo and hi planes of about a third of its (row, axis,
+    lane) box entries swapped: Phase A gives the same result for any box."""
+    import torch
+
+    tb = acc.tboxes.clone()
+    swap = torch.from_numpy(rng.random((tb.shape[0], 24)) < 0.33).to(tb.device)
+    lo, hi = tb[:, 0:24].clone(), tb[:, 24:48].clone()
+    tb[:, 0:24] = torch.where(swap, hi, lo)
+    tb[:, 24:48] = torch.where(swap, lo, hi)
+    return dataclasses.replace(acc, tboxes=tb.contiguous())
+
+
+def phase_pair_kernels(scene_host, scene, accel, dev, gpu):
+    import numpy as np
+    import torch
+
+    from atray_tpu_torch.accel.shaded import build_shaded_accel
+    from atray_tpu_torch.config import KDTreeConfig
+    from atray_tpu_torch.kernels.treelet_pairs import (
+        _words, pair_slots, treelet_candidates, treelet_pair_hit)
     from atray_tpu_torch.kernels.wide_shade import wide_shade_planes
 
+    for k in (1, 4, 8):
+        print(f"phase 10 treelet_phase_a K={k} ptxas: {_ptxas('treelet_phase_a', f'ILi{k}E')}")
+    print(f"phase 10 treelet_phase_b ptxas: {_ptxas('treelet_phase_b')}")
     rng = np.random.default_rng(15)
     o, d = _chunk_rays(dev)
     prim = wide_shade_planes(accel, *_planes_of(o, d),
                              torch.ones(o.shape[0], dtype=torch.bool, device=dev))
     bo, bd, alive = _hemisphere_rays(o, d, prim, rng, dev)
     planes = _planes_of(bo, bd)
+    del o, d, prim, bo, bd
     res = _pair_kernels(accel, planes, alive, "chunk bounce", gpu)
     _pair_kernels(*_nan_lane_case(dev, rng), "NaN-lane accel", gpu)
+
+    # the template's ends, K = 1 and 8, on 65,536 of the chunk's live bounce
+    # rays; then the same rays with zero and with denormal direction
+    # components (1 / d is infinite for a denormal, so t can be NaN); these
+    # are held on the card only, where nothing flushes denormals
+    live = torch.nonzero(alive).squeeze(1)[:65_536]
+    sub = [p[live].contiguous() for p in planes]
+    ones = torch.ones(live.shape[0], dtype=torch.bool, device=dev)
+    for k in (1, 8):
+        _phase_a_case(accel, sub, ones, "live bounce rays", gpu, k=k)
+    for name, value in (("zero", 0.0), ("denormal", 1.0e-40)):
+        edge = _edge_directions(sub, ones, rng, value)
+        for k in (1, 4, 8):
+            _phase_a_case(accel, edge, ones, f"live bounce rays, {name} direction components",
+                          gpu, k=k, time_plain=False)
+    # boxes with lo and hi swapped: the kernel reads their tboxes_ordered
+    tids_sw, _ = _phase_a_case(_swapped_boxes(accel, rng), sub, ones,
+                               "live bounce rays, a third of the box planes swapped", gpu,
+                               time_plain=False)
+    if not torch.equal(tids_sw, treelet_candidates(accel, *sub, ones)[0]):
+        raise AssertionError("treelet_phase_a: swapped box planes changed the candidates")
+    del tids_sw
+
+    # the pair frame's own launches: Phase A and Phase B at bounces 1 (full
+    # width) and 2 (sorted and packed) of one chunk
+    for b, (args_a, args_b) in _pair_frame_launches(scene, accel).items():
+        _phase_a_case(accel, args_a[:6], args_a[6], f"frame bounce {b}", gpu, time_plain=False)
+        _phase_b_case(accel, args_b[:6], args_b[6], f"frame bounce {b}", gpu, time_plain=False)
+
+    # Phase B on the chunk's pairs in a shuffled order, an eighth of the
+    # slots dead, interleaved
+    keys, perm, cap, pairs, ptid, walked = res.pop("route")
+    shuffle = torch.from_numpy(rng.permutation(cap)).to(dev)
+    dead = torch.from_numpy(rng.random(cap) < 0.125).to(dev)
+    _phase_b_case(accel, [p[shuffle].contiguous() for p in pairs],
+                  torch.where(dead, -1, ptid[shuffle]).to(torch.int32).contiguous(),
+                  "shuffled slots, 1/8 dead", gpu, time_plain=False)
+    del pairs, ptid, shuffle, dead
+
+    # boxes over more than one shared-memory tile: the slice mesh at 2
+    # leaves a treelet
+    t0 = time.perf_counter()
+    fine = build_shaded_accel(scene_host, KDTreeConfig(leaf_size=16, leaves_per_treelet=2))
+    t_fine = time.perf_counter() - t0
+    fine = fine.to(dev)
+    print(f"phase 10 host build: shaded accel at 2 leaves a treelet {t_fine:.2f} s "
+          f"({fine.num_treelets} treelets, {fine.tboxes.shape[0]} box rows)")
+    sub_alive = torch.from_numpy(rng.random(live.shape[0]) >= 0.1).to(dev)
+    _pair_kernels(fine, sub, sub_alive, "bounce rays 10% dead, 2 leaves a treelet", gpu,
+                  time_plain=False)
+    del fine, sub, sub_alive
 
     # phase 2's check on the pair path's own routing map: the slot map
     # treelet_pair_hit builds from these candidates over Phase B's result
     # words, zero-padded to the K*R slots as the path pads them
-    keys, perm, cap, walked = res.pop("route")
     words = _words(walked)
     words = torch.cat([words, words.new_zeros((6, keys.shape[0] - cap))], dim=1)
     slot = pair_slots(keys, perm, cap)
@@ -1525,14 +1705,15 @@ def _lineage_fns():
                                 persistent_wide.persistent_ref)}
 
 
-def _ptxas(name: str) -> str:
+def _ptxas(name: str, template: str = "") -> str:
     """The ``-Xptxas -v`` stack frame and spills, and registers, of
-    ``<name>_kernel`` in this process's build."""
+    ``<name>_kernel`` (the instance whose mangled template arguments begin
+    with ``template``) in this process's build."""
     from atray_tpu_torch.kernels import _build
 
     lines = _build._loaded.log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and f"{name}_kernel" in line:
+        if "Compiling entry" in line and f"{name}_kernel{template}" in line:
             frame = ""
             for nxt in lines[i + 1:]:
                 if "stack frame" in nxt:
@@ -1916,7 +2097,7 @@ def main() -> int:
         scene_host, accel, (t_scene_host.to(dev), t_orig, t_dirn), dev, gpu)
     g_counts, _ = phase_gradient(scene, accel, scene_host, accel_host, dev, gpu)
     t_counts, t_err = phase_trainer(wide_host.to(dev), t_scene_host, t_orig, t_dirn, dev, gpu)
-    pk = phase_pair_kernels(accel, dev, gpu)
+    pk = phase_pair_kernels(scene_host, scene, accel, dev, gpu)
     p_counts = phase_pair_slice(scene, accel, walk_film, walk_frames, dev, gpu)
     del walk_film
     h_counts, pp_err, pp_ms, pp_plain, pp_bound, walks = phase_ppacket(
