@@ -15,11 +15,18 @@ A ``TreePack`` holds the tables of the skip-link packet walk
 
 The unshaded ``WideBVH`` (``accel/wide.py``) reuses ``tris`` verbatim.
 ``TreePack.to(device)`` uploads the tables.
+
+``TreePack.cnodes`` is the derived table the hit kernel reads
+(``pack_node_records``: one 32-byte record a node, from ``nodebox`` and
+``ctrl``), built on the tables' device at first use on each object; ``to``
+makes a new object, so it is never stale. The original tables stay for the
+plain versions and the other walks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -30,6 +37,18 @@ from atray_tpu_torch.scene.data import _Leaves
 LANE = 128
 TRI_STRIDE = 16                   # floats per leaf record
 TRIS_PER_ROW = LANE // TRI_STRIDE  # 8
+PACK_NODE_WORDS = 8               # one node record: lo xyz, hi xyz, miss, leaf row
+
+
+def pack_node_records(nodebox, ctrl) -> torch.Tensor:
+    """(K, 8) int32 words, one 32-byte record a node in the tables' DFS
+    preorder (so ``node + 1`` is the next record): words 0-5 the bits of
+    ``nodebox`` (min x, y, z, max x, y, z), 6 the miss link, 7 the leaf
+    row or -1. Box floats travel as their bits; a kernel reads a record
+    as two 16-byte loads."""
+    nodebox, ctrl = torch.as_tensor(nodebox), torch.as_tensor(ctrl)
+    return torch.cat([nodebox.t().contiguous().view(torch.int32),
+                      ctrl.t().to(torch.int32)], dim=1).contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +69,13 @@ class TreePack(_Leaves):
     def device(self) -> torch.device:
         nb = self.nodebox
         return nb.device if isinstance(nb, torch.Tensor) else torch.device("cpu")
+
+    @functools.cached_property
+    def cnodes(self) -> torch.Tensor:
+        """``pack_node_records`` of this pack's tables, on their device;
+        built once per object (the dataclass is frozen, so its tables
+        never change under it)."""
+        return pack_node_records(self.nodebox, self.ctrl)
 
 
 def pack_bvh(bvh: BVH) -> TreePack:

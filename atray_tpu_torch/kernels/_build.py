@@ -61,9 +61,8 @@ _SIGNATURES = {
     "atray_treelet_phase_b": (
         [_P] * 7 + [ctypes.c_longlong, _P, _P] + [ctypes.c_int] * 2 + [_P] * 7
     ),
-    "atray_ppacket": (
-        [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 5
-    ),
+    # rays, n, node records, stride-16 records, leaf size, 4 outputs, stream
+    "atray_ppacket": [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int] + [_P] * 5,
     # the lineage walks: rays, node tables, leaf rows (the 8-wide ones then
     # their stack and queue caps), 4 outputs, visit stats, stream
     "atray_packet_walk": (

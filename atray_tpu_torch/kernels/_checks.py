@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from atray_tpu_torch.accel.pack import TRIS_PER_ROW
+from atray_tpu_torch.accel.pack import PACK_NODE_WORDS, TRIS_PER_ROW
 from atray_tpu_torch.accel.wide import NODE_WORDS
 
 
@@ -41,8 +41,11 @@ def _check_leaf_rows(tris, leaf_size: int, owner: str) -> None:
         raise ValueError("leaf_size must be <= 8 or a multiple of 8")
 
 
-def check_treepack(pack, orig: torch.Tensor, dirn: torch.Tensor, kernel: str) -> torch.device:
-    """Rays and a ``TreePack`` uploaded to their device."""
+def check_treepack(pack, orig: torch.Tensor, dirn: torch.Tensor, kernel: str,
+                   derived: bool = False) -> torch.device:
+    """Rays and a ``TreePack`` uploaded to their device. With ``derived``,
+    on a CUDA device only, also the kernel's node records ``cnodes`` (built
+    here at first use): device, dtype, shape and 16-byte alignment."""
     dev = check_rays(orig, dirn, kernel)
     _check_tables("pack", {"nodebox": (pack.nodebox, torch.float32),
                            "ctrl": (pack.ctrl, torch.int32),
@@ -51,6 +54,13 @@ def check_treepack(pack, orig: torch.Tensor, dirn: torch.Tensor, kernel: str) ->
     if pack.nodebox.shape != (6, k) or pack.ctrl.shape != (2, k):
         raise ValueError("pack node tables do not match num_nodes")
     _check_leaf_rows(pack.tris, pack.leaf_size, "pack")
+    if derived and dev.type == "cuda":
+        nodes = pack.cnodes
+        _check_tables("pack", {"cnodes": (nodes, torch.int32)}, dev)
+        if nodes.shape != (k, PACK_NODE_WORDS):
+            raise ValueError("pack.cnodes does not match num_nodes")
+        if nodes.data_ptr() % 16 or pack.tris.data_ptr() % 16:
+            raise ValueError("pack.cnodes and pack.tris must be 16-byte aligned")
     return dev
 
 

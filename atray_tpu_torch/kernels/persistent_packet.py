@@ -7,8 +7,10 @@ directions and returns ``(t, u, v, fid)``: distance, barycentrics and int32
 face id of the nearest hit, ``(INF, 0, 0, -1)`` on a miss.
 
 On a CUDA tensor it launches ``csrc/ppacket.cu`` (one thread per ray, one
-node cursor, no stack); on a CPU tensor it runs ``ppacket_ref``, the plain
-PyTorch version of the same walk: same tables, same slab and
+node cursor, no stack, over the pack's derived table ``cnodes``, one
+32-byte record a node, and its stride-16 leaf records); on a CPU tensor it
+runs ``ppacket_ref``, the plain PyTorch version of the same walk over the
+original tables (no derived table is built there): same slab and
 Möller–Trumbore op order, same per-ray node order, so the two agree
 bit-for-bit where the device's arithmetic is IEEE (the kernel is built with
 ``--fmad=false``). The TPU kernel walks blocks of rays in lockstep and
@@ -37,7 +39,7 @@ Hits = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 def ppacket_first_hit(pack: TreePack, orig: torch.Tensor, dirn: torch.Tensor) -> Hits:
     """Nearest hit per ray; see the module docstring."""
-    dev = check_treepack(pack, orig, dirn, "ppacket")
+    dev = check_treepack(pack, orig, dirn, "ppacket", derived=True)
     if dev.type == "cpu":
         return ppacket_ref(pack, orig, dirn)
     lib = _build.load()
@@ -47,8 +49,8 @@ def ppacket_first_hit(pack: TreePack, orig: torch.Tensor, dirn: torch.Tensor) ->
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.atray_ppacket(
-            orig.data_ptr(), dirn.data_ptr(), n, pack.nodebox.data_ptr(), pack.ctrl.data_ptr(),
-            pack.num_nodes, pack.tris.data_ptr(), pack.leaf_size,
+            orig.data_ptr(), dirn.data_ptr(), n, pack.cnodes.data_ptr(), pack.tris.data_ptr(),
+            pack.leaf_size,
             t.data_ptr(), u.data_ptr(), v.data_ptr(), fid.data_ptr(), stream)
     COUNTER.launches += 1
     _build.check(rc, "ppacket")

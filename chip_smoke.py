@@ -109,13 +109,16 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     ``lane_take`` on the gradient's own routing map (captured from its
     forward: C = 6, N = K x 2,073,600) under phase 2's rules; a profiled
     pair forward+backward;
-12. ``ppacket`` (the ``TreePack`` walk) against ``ppacket_ref`` on 65,536
-    mixed rays and on the gradient config's 2,073,600 primaries and their
-    bounce rays (phase 7's rules), over a ``HybridAccel`` of the slice
-    mesh at leaf_size 8; then ``render`` at the gradient config with that
-    ``HybridAccel`` and with ``make_accel`` (leaf_size 8), timed, the films
-    equal but for counted tie pixels (at most 0.05%), ``wide_exact``
-    launched once and ``ppacket`` twice per render, no plain version;
+12. ``ppacket`` (the ``TreePack`` walk), with its ptxas registers and
+    spills, against ``ppacket_ref`` on 65,536 mixed rays and on the
+    gradient config's 2,073,600 primaries and their bounce rays (phase 7's
+    rules, and none of the rays' (t, u, v, id) may differ bit for bit),
+    over a ``HybridAccel`` of the slice mesh at leaf_size 8; then
+    ``render`` at the gradient config with that ``HybridAccel`` and with
+    ``make_accel`` (leaf_size 8), timed, the films equal but for counted
+    tie pixels (at most 0.05%), each film's sha256, ``wide_exact``
+    launched once and ``ppacket`` twice per render, no plain version; a
+    profiled ``HybridAccel`` render;
 13. the four lineage walks (``packet_walk``, ``frustum_walk`` over phase
     12's ``TreePack``; ``wide_frustum``, ``persistent_wide`` over its leaf-8
     ``WideBVH``) against their plain versions under phase 7's rules, with
@@ -146,7 +149,7 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     ``index_select`` for P10-P11) at one variant of each.
 
 Each path's launch counts are set to 0 just before it runs and read just
-after. Every profile (phases 4, 8, 9, 11) prints device time by kernel
+after. Every profile (phases 4, 8, 9, 11, 12) prints device time by kernel
 and, where they ran, the lane kernels' device time and launches. Then a
 JSON line of per-kernel results (times, launches, bound), and as the last
 line ``{"ok": true, "device": {...}}``. The script needs a
@@ -1578,6 +1581,8 @@ def _packet_compare(pack, o, d, label, gpu):
     want = ppacket_ref(pack, o, d, visits=visits)
     torch.cuda.synchronize()
     (gt, gu, gv, gi), (wt, wu, wv, wi) = ([x.cpu().numpy() for x in r] for r in (got, want))
+    n_bits = int(np.any([a.view(np.int32) != b.view(np.int32)
+                         for a, b in ((gt, wt), (gu, wu), (gv, wv), (gi, wi))], axis=0).sum())
     hit = wi >= 0
     dt = np.abs(gt - wt)
     if np.any(dt > np.spacing(np.abs(wt).astype(np.float32))):
@@ -1589,6 +1594,9 @@ def _packet_compare(pack, o, d, label, gpu):
                 float(np.abs(gv - wv)[same].max(initial=0.0)))
     if uverr > 1e-6:
         raise AssertionError(f"ppacket {label}: u/v error {uverr}")
+    if n_bits:
+        raise AssertionError(f"ppacket {label}: (t, u, v, id) differ bit for bit from "
+                             f"ppacket_ref on {n_bits} rays")
     ms = _cuda_ms(lambda: ppacket_first_hit(pack, o, d), 20)
     plain_ms = _host_ms(lambda: ppacket_ref(pack, o, d))
     tab = sum(getattr(pack, k).nbytes for k in ("nodebox", "ctrl", "tris"))
@@ -1597,8 +1605,9 @@ def _packet_compare(pack, o, d, label, gpu):
     max_dt = float(dt[hit].max()) if hit.any() else 0.0
     print(f"phase 12 ppacket {label}: {o.shape[0]} rays ({int(hit.sum())} hits): ids differ on "
           f"{int((~same).sum())} (coincident faces), max |dt| {max_dt:.3g}, max u/v err "
-          f"{uverr:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms "
-          f"by {bound[1]} ({visits['nodes']} node visits, {visits['records']} records) [{gpu}]")
+          f"{uverr:.3g}, (t, u, v, id) differ bit for bit on {n_bits} rays; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms by {bound[1]} ({visits['nodes']} "
+          f"node visits, {visits['records']} records) [{gpu}]")
     return max(max_dt, uverr), ms, plain_ms, bound, visits
 
 
@@ -1624,6 +1633,7 @@ def phase_ppacket(scene, scene_host, shaded, dev, gpu):
           f"{hybrid.wide.num_nodes} wide nodes)")
     hybrid = hybrid.to(dev)
     wide = make_accel(v, f, cfg).to(dev)
+    print(f"phase 12 ppacket ptxas: {_ptxas('ppacket')}")
 
     def hemisphere(o, d, rng):
         fo = wide_shade_planes(shaded, *_planes_of(o, d),
@@ -1676,9 +1686,18 @@ def phase_ppacket(scene, scene_host, shaded, dev, gpu):
           f"{', '.join(f'{x:.4f}' for x in secs['HybridAccel'])} s, make_accel (leaf_size 8) "
           f"{', '.join(f'{x:.4f}' for x in secs['make_accel'])} s; HybridAccel launches "
           f"wide_exact {h_counts['wide_exact'][0]}, ppacket {h_counts['ppacket'][0]}, plain "
-          f"calls 0; films {'torch.equal' if n_px == 0 else f'differ on {n_px} pixels (ties)'} "
-          f"[{gpu}]")
+          f"calls 0; films {'torch.equal' if n_px == 0 else f'differ on {n_px} pixels (ties)'}; "
+          f"film sha256 HybridAccel {_digest(h_film)}, make_accel {_digest(w_film)} [{gpu}]")
+    _profile_frame(lambda: render(scene, cam, settings, prng_key(8), accel=hybrid),
+                   sum(secs["HybridAccel"]) / 2, gpu, "phase 12", "one HybridAccel render")
     return h_counts, max(err1, err2, err3), ms, plain_ms, bound, walks
+
+
+def _digest(film) -> str:
+    """The first 16 hex digits of the sha256 of a film's float32 bytes."""
+    import hashlib
+
+    return hashlib.sha256(film.detach().cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 LINEAGE_CUT = 262_144     # rays timed instead of a set whose one launch passes 1 s

@@ -30,7 +30,7 @@ from atray_tpu.scene.transforms import translate as jax_translate  # noqa: E402
 from test_torch_render import _accel_fields, _tree, jax_builder  # noqa: E402
 
 from atray_tpu_torch.accel.bvh import build_bvh  # noqa: E402
-from atray_tpu_torch.accel.pack import pack_bvh  # noqa: E402
+from atray_tpu_torch.accel.pack import PACK_NODE_WORDS, pack_bvh, pack_node_records  # noqa: E402
 from atray_tpu_torch.accel.traverse import bvh_first_hit  # noqa: E402
 from atray_tpu_torch.accel.wide import HybridAccel, hybrid_from_mesh, make_accel  # noqa: E402
 from atray_tpu_torch.config import KDTreeConfig, RenderSettings  # noqa: E402
@@ -75,6 +75,37 @@ def test_treepack_tables_bit_equal(leaf_size):
     back = treepack_from_numpy(_accel_fields(ref))
     assert all(np.array_equal(_bits(getattr(back, f)), _bits(getattr(got, f)))
                for f in ("nodebox", "ctrl", "tris"))
+
+
+@pytest.mark.parametrize("leaf_size", [4, 8])
+def test_node_records_hold_nodebox_and_ctrl_bits(leaf_size):
+    # the kernel's one 32-byte record a node: the box's six floats as their
+    # bits, then the miss link and the leaf row as int32, in the tables'
+    # DFS preorder (record node + 1 is the interior-hit successor)
+    mesh = procedural.dragon_proxy(2000)
+    host = pack_bvh(build_bvh(mesh.vertices, mesh.faces, KDTreeConfig(leaf_size=leaf_size)))
+    rec = host.to("cpu").cnodes
+    assert rec.dtype == torch.int32 and rec.shape == (host.num_nodes, PACK_NODE_WORDS)
+    assert rec.is_contiguous()
+    np.testing.assert_array_equal(rec[:, 0:6].numpy(), _bits(host.nodebox).T)
+    np.testing.assert_array_equal(rec[:, 6:8].numpy(), host.ctrl.T)
+    interior = host.ctrl[1] < 0
+    assert interior.any() and (~interior).any()
+    assert np.all(np.flatnonzero(interior) + 1 < host.num_nodes)     # node + 1 exists
+    assert torch.equal(pack_node_records(host.nodebox, host.ctrl), rec)
+
+
+def test_node_records_are_built_once_per_object_and_anew_after_to():
+    mesh = procedural.cube()
+    host = pack_bvh(build_bvh(mesh.vertices, mesh.faces, KDTreeConfig(leaf_size=4)))
+    pack = host.to("cpu")
+    first = pack.cnodes
+    assert pack.cnodes is first                                   # cached on the object
+    again = pack.to("cpu")
+    assert again is not pack and again.cnodes is not first        # a new object, a new table
+    assert torch.equal(again.cnodes, first)
+    moved = dataclasses.replace(pack, nodebox=pack.nodebox + 1.0)
+    assert torch.equal(moved.cnodes[:, 0:6].view(torch.float32), (pack.nodebox + 1.0).t())
 
 
 def test_plain_walks_match_jax_packet_kernel_and_jnp_walk(rng):
@@ -208,10 +239,17 @@ def test_cuda_kernel_matches_plain_version():
     dev = torch.device("cuda")
     mesh = procedural.dragon_proxy(target_tris=20000)
     pack = pack_bvh(build_bvh(mesh.vertices, mesh.faces, KDTreeConfig(leaf_size=8))).to(dev)
-    o, d = _random_rays(np.random.default_rng(5), 20000)
+    rng = np.random.default_rng(5)
+    o, d = _random_rays(rng, 20000)
+    d[:4000][rng.random((4000, 3)) < 0.4] = 0.0           # zero direction components
+    o[4000:5000], d[4000:5000] = 1.0e7, (0.0, 0.0, 1.0)   # dead rays, parked as render() parks them
     o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
     got = ppacket_first_hit(pack, o, d)
     want = ppacket_ref(pack, o, d)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    assert torch.all(got[3][4000:5000] == -1) and torch.any(got[3][:4000] >= 0)
+    visits = {}
+    ppacket_ref(pack, o[4000:5000], d[4000:5000], visits=visits)
+    assert visits["nodes"] == 1000                                 # each ends at the root
