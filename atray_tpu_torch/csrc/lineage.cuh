@@ -104,6 +104,63 @@ __device__ __forceinline__ void leaf_test(const float* __restrict__ tris,
     }
 }
 
+// The same leaf test over a leaf's records read as 16-byte words (each
+// record [p0.xyz e1.x | e1.yz e2.xy | e2.z id pad pad | pad], 4 float4s),
+// from global memory (kGlobal) or from a shared-memory copy. Records go two
+// at a time: both dets first, then u, and v and t only where u is in [0, 1]
+// (u > 1 with v >= 0 makes u + v > 1: no hit either way). Each record's
+// IEEE operations are record_test's, in its order, and the running best
+// takes records in record order with a strict t < best.t, so the result is
+// record_test's bit for bit.
+template <bool kGlobal>
+__device__ __forceinline__ void leaf_test_pairs(const float4* __restrict__ rec, int leaf_size,
+                                                const Ray& r, Hit& h) {
+    for (int k0 = 0; k0 < leaf_size; k0 += 2) {
+        float4 V[2][3];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                V[j][c] = kGlobal ? __ldg(rec + 4 * (k0 + j) + c) : rec[4 * (k0 + j) + c];
+            }
+        }
+        float pv[2][3], det[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            const float e2x = V[j][1].z, e2y = V[j][1].w, e2z = V[j][2].x;
+            const float e1x = V[j][0].w, e1y = V[j][1].x, e1z = V[j][1].y;
+            pv[j][0] = r.dy * e2z - r.dz * e2y;
+            pv[j][1] = r.dz * e2x - r.dx * e2z;
+            pv[j][2] = r.dx * e2y - r.dy * e2x;
+            det[j] = e1x * pv[j][0] + e1y * pv[j][1] + e1z * pv[j][2];
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            // one-sided; past an odd leaf_size the second record is not the leaf's
+            if (!(det[j] > 1.0e-12f) || k0 + j >= leaf_size) continue;
+            const float e2x = V[j][1].z, e2y = V[j][1].w, e2z = V[j][2].x;
+            const float e1x = V[j][0].w, e1y = V[j][1].x, e1z = V[j][1].y;
+            const float inv_det = 1.0f / det[j];
+            const float tvx = r.ox - V[j][0].x;
+            const float tvy = r.oy - V[j][0].y;
+            const float tvz = r.oz - V[j][0].z;
+            const float uu = (tvx * pv[j][0] + tvy * pv[j][1] + tvz * pv[j][2]) * inv_det;
+            if (!(uu >= 0.0f && uu <= 1.0f)) continue;
+            const float qvx = tvy * e1z - tvz * e1y;
+            const float qvy = tvz * e1x - tvx * e1z;
+            const float qvz = tvx * e1y - tvy * e1x;
+            const float vv = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv_det;
+            const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+            if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > kTMin && tt < h.t) {
+                h.t = tt;
+                h.u = uu;
+                h.v = vv;
+                h.id = __float_as_int(V[j][2].y);
+            }
+        }
+    }
+}
+
 __device__ __forceinline__ float warp_min(float x) {
     for (int s = kWarp / 2; s > 0; s >>= 1) x = fminf(x, __shfl_xor_sync(kFull, x, s));
     return x;

@@ -15,9 +15,13 @@
 // Lanes past the end of the rays (the ragged last warp) vote false, which
 // replaces the TPU kernel's padding with far rays.
 //
-// Tables (accel/pack.py): nodebox (6, K) f32, ctrl (2, K) i32 (miss link,
-// leaf row or -1), leaf rows of 128 floats with 8 stride-16 records. Node
-// boxes are finite, so fminf/fmaxf are safe in the slab.
+// Tables (accel/pack.py): cnodes, one 32-byte record a node in DFS preorder
+// (pack_node_records: lo xyz, hi xyz, miss link, leaf row or -1), read as
+// two 16-byte loads of one sector where nodebox and ctrl spread it over
+// eight planes; leaf rows of 128 floats with 8 stride-16 records, read as
+// 16-byte words two records at a time (lineage.cuh's leaf_test_pairs: both
+// dets first, v and t only where u is in [0, 1]). Node boxes are finite,
+// so fminf/fmaxf are safe in the slab.
 //
 // What bounds it: the lockstep union. A warp visits every node any of its
 // rays enters, so incoherent rays pay for the union of 32 walks, and every
@@ -30,10 +34,11 @@ using namespace lineage;
 
 namespace {
 
-__global__ void packet_walk_kernel(
+constexpr int kThreads = 128;
+
+__global__ void __launch_bounds__(kThreads) packet_walk_kernel(
     const float* __restrict__ orig, const float* __restrict__ dirn, long long n,
-    const float* __restrict__ nodebox, const int* __restrict__ ctrl, int num_nodes,
-    const float* __restrict__ tris, const int* __restrict__ tris_i, int leaf_size,
+    const int4* __restrict__ nodes, const float4* __restrict__ tris4, int leaf_size,
     float* __restrict__ t_out, float* __restrict__ u_out, float* __restrict__ v_out,
     int* __restrict__ id_out, unsigned long long* __restrict__ stats) {
     const long long base = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kWarp * kWarp;
@@ -43,51 +48,48 @@ __global__ void packet_walk_kernel(
     const bool live = i < n;
     const Ray r = load_ray(orig, dirn, i, live);
     const float idx = inv_dir(r.dx), idy = inv_dir(r.dy), idz = inv_dir(r.dz);
-    const long long k = num_nodes;
 
     Hit h;
-    unsigned long long nodes = 0, records = 0;
+    unsigned long long steps = 0, records = 0;
     int node = 0;
     while (node >= 0) {
-        ++nodes;
-        const float tx0 = (nodebox[node] - r.ox) * idx;
-        const float tx1 = (nodebox[3 * k + node] - r.ox) * idx;
-        const float ty0 = (nodebox[k + node] - r.oy) * idy;
-        const float ty1 = (nodebox[4 * k + node] - r.oy) * idy;
-        const float tz0 = (nodebox[2 * k + node] - r.oz) * idz;
-        const float tz1 = (nodebox[5 * k + node] - r.oz) * idz;
+        ++steps;
+        const int4 a = __ldg(nodes + 2 * node);      // lo x, y, z, hi x
+        const int4 c = __ldg(nodes + 2 * node + 1);  // hi y, z, miss link, leaf row
+        const float tx0 = (__int_as_float(a.x) - r.ox) * idx;
+        const float tx1 = (__int_as_float(a.w) - r.ox) * idx;
+        const float ty0 = (__int_as_float(a.y) - r.oy) * idy;
+        const float ty1 = (__int_as_float(c.x) - r.oy) * idy;
+        const float tz0 = (__int_as_float(a.z) - r.oz) * idz;
+        const float tz1 = (__int_as_float(c.y) - r.oz) * idz;
         const float t_near = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
         const float t_far = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
         const bool bhit = live && t_near <= t_far && t_far > 0.0f && t_near < h.t;
         const bool any = __any_sync(kFull, bhit);
-        const int miss = ctrl[node];
-        const int leaf_row = ctrl[k + node];
-        if (any && leaf_row >= 0) {
-            leaf_test(tris, tris_i, leaf_row, leaf_size, r, h);
+        if (any && c.w >= 0) {
+            leaf_test_pairs<true>(tris4 + (long long)c.w * 32, leaf_size, r, h);
             records += leaf_size;
         }
-        node = (any && leaf_row < 0) ? node + 1 : miss;
+        node = (any && c.w < 0) ? node + 1 : c.z;
     }
     if (live) store_hit(h, i, t_out, u_out, v_out, id_out);
-    add_stats(stats, lane, base, n, nodes, records);
+    add_stats(stats, lane, base, n, steps, records);
 }
 
 }  // namespace
 
-// Launches on ``stream``; ``stats`` (2 int64, or null) gains the visit
+// Launches on ``stream``; ``nodes`` is the pack's cnodes table, ``tris`` its
+// stride-16 leaf records; ``stats`` (2 int64, or null) gains the visit
 // counts. Returns cudaGetLastError() of the launch.
 extern "C" int atray_packet_walk(
-    const float* orig, const float* dirn, long long n,
-    const float* nodebox, const int* ctrl, int num_nodes,
-    const float* tris, int leaf_size,
-    float* t_out, float* u_out, float* v_out, int* id_out,
+    const float* orig, const float* dirn, long long n, const int* nodes, const float* tris,
+    int leaf_size, float* t_out, float* u_out, float* v_out, int* id_out,
     unsigned long long* stats, void* stream) {
     if (n <= 0) return 0;
-    const int threads = 128;
-    const long long blocks = (n + threads - 1) / threads;
-    packet_walk_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        orig, dirn, n, nodebox, ctrl, num_nodes,
-        tris, reinterpret_cast<const int*>(tris), leaf_size,
+    const long long blocks = (n + kThreads - 1) / kThreads;
+    packet_walk_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        orig, dirn, n, reinterpret_cast<const int4*>(nodes),
+        reinterpret_cast<const float4*>(tris), leaf_size,
         t_out, u_out, v_out, id_out, stats);
     return (int)cudaGetLastError();
 }

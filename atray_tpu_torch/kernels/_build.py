@@ -63,14 +63,16 @@ _SIGNATURES = {
     ),
     # rays, n, node records, stride-16 records, leaf size, 4 outputs, stream
     "atray_ppacket": [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int] + [_P] * 5,
-    # the lineage walks: rays, node tables, leaf rows (the 8-wide ones then
-    # their stack and queue caps), 4 outputs, visit stats, stream
-    "atray_packet_walk": (
-        [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 6
-    ),
+    # the TreePack lineage walks: rays, n, node records (the frustum walk
+    # then num_nodes), stride-16 records, leaf size, 4 outputs, visit
+    # stats, stream; the frustum walk's shared memory a block
+    "atray_packet_walk": [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int] + [_P] * 6,
     "atray_frustum_walk": (
-        [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 6
+        [_P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 6
     ),
+    "atray_frustum_walk_smem": [ctypes.c_int],
+    # the 8-wide lineage walks: rays, node tables, leaf rows, their stack
+    # and queue caps, 4 outputs, visit stats, stream
     "atray_wide_frustum": (
         [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P] + [ctypes.c_int] * 3 + [_P] * 6
     ),

@@ -20,10 +20,12 @@ kernel padded with copies of the last ray instead). The test is
 conservative, so hits are exact; exact ties of coincident faces may pick
 the other face than a per-ray walk.
 
-On a CUDA tensor it launches ``csrc/frustum_walk.cu``; on a CPU tensor it
-runs ``frustum_ref``, a plain PyTorch version with the kernel's bounds,
-queue and flushes, bit-equal to it. ``interpret``, ``block_sub`` and
-``leaf_batch`` are not carried.
+On a CUDA tensor it launches ``csrc/frustum_walk.cu``, which walks the
+pack's node records ``TreePack.cnodes`` (built at first use) 32 skip-link
+positions a step and stages each queued leaf's records in shared memory;
+on a CPU tensor it runs ``frustum_ref``, a plain PyTorch version with the
+kernel's bounds, queue and flushes, bit-equal to it. ``interpret``,
+``block_sub`` and ``leaf_batch`` are not carried.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ from atray_tpu_torch.kernels.packet_walk import Hits, _launch, unbundle
 
 COUNTER = _build.COUNTERS["frustum_walk"]
 LEAF_BATCH = 8      # queued leaves per flush; kLeafBatch in the .cu
-_WINDOW = 128       # skip-link positions the plain version scans per step
+_WINDOW = 128       # skip-link positions a step of the plain version (the kernel's: 32)
+VISIT_KEYS = ("nodes", "records", "warp_nodes")
 
 
 def frustum_first_hit(pack: TreePack, orig: torch.Tensor, dirn: torch.Tensor) -> Hits:
@@ -53,11 +56,14 @@ def frustum_first_hit(pack: TreePack, orig: torch.Tensor, dirn: torch.Tensor) ->
 def _first_hit(pack: TreePack, orig: torch.Tensor, dirn: torch.Tensor,
                visits: Optional[dict] = None) -> Hits:
     """``frustum_first_hit`` with ``packet_walk._first_hit``'s ``visits``,
-    for diagnostics."""
-    dev = check_treepack(pack, orig, dirn, "frustum_walk")
+    for diagnostics, and a third count, "warp_nodes": the node steps of
+    each warp, counted once a warp (its interval test is the warp's, not a
+    lane's)."""
+    dev = check_treepack(pack, orig, dirn, "frustum_walk", derived=True)
     if dev.type == "cpu":
         return frustum_ref(pack, orig, dirn, visits)
-    return _launch("atray_frustum_walk", COUNTER, "frustum_walk", pack, orig, dirn, visits)
+    return _launch("frustum_walk", COUNTER, pack, orig, dirn, visits, VISIT_KEYS,
+                   node_args=(pack.num_nodes,))
 
 
 def _node_bounds(pack: TreePack, o, d, live):
@@ -81,6 +87,20 @@ def _node_bounds(pack: TreePack, o, d, live):
     return tlo, hi3
 
 
+def _cut(tmax_after, tm, total, push, qpos):
+    """Where a window of ``frustum_ref`` ends, per bundle: whether a full
+    flush of the window lowers ``tmax``, the first that does, and the
+    window position of the leaf that filled it (the last position where
+    none does)."""
+    seg = torch.arange(tmax_after.shape[1], device=tm.device)
+    full = (seg[None, :] + 1) * LEAF_BATCH <= total[:, None]
+    changed = full & (tmax_after < tm[:, None])
+    has = changed.any(1)
+    first = changed.int().argmax(1)
+    at = push & (qpos == ((first + 1) * LEAF_BATCH)[:, None])
+    return has, first, torch.where(has, at.int().argmax(1), push.shape[1] - 1)
+
+
 def frustum_ref(pack: TreePack, orig: torch.Tensor, dirn: torch.Tensor,
                 visits: Optional[dict] = None) -> Hits:
     """Plain PyTorch version of the kernel.
@@ -95,9 +115,11 @@ def frustum_ref(pack: TreePack, orig: torch.Tensor, dirn: torch.Tensor,
     the step keeps the window up to the first flush that lowers ``tmax``
     (the nodes after it must be tested again with the new bound), or all
     of it. Records are tested against every lane with a strict t < best,
-    so the first minimal t in queue order wins, as in the kernel. With a
-    ``visits`` dict it adds the walk's work ("nodes", "records", per live
-    ray)."""
+    so the first minimal t in queue order wins, as in the kernel. Any
+    window width gives the same hits and visits: width 1 is the
+    one-node-a-step walk, the kernel's is 32. With a ``visits`` dict it adds
+    the walk's work ("nodes", "records", per live ray; "warp_nodes", node
+    steps once a bundle)."""
     COUNTER.plain_calls += 1
     n = orig.shape[0]
     o, d, live = bundles(orig, dirn)
@@ -125,6 +147,7 @@ def frustum_ref(pack: TreePack, orig: torch.Tensor, dirn: torch.Tensor,
     qtlo = torch.zeros((nb, LEAF_BATCH), dtype=torch.float32, device=dev)
     tmax = torch.full((nb,), BIG, dtype=torch.float32, device=dev)
     nodes = torch.zeros((), dtype=torch.int64, device=dev)
+    warp_nodes = torch.zeros((), dtype=torch.int64, device=dev)
     records = torch.zeros((), dtype=torch.int64, device=dev)
     while True:
         cur = torch.nonzero(pos_node < k).squeeze(1)
@@ -164,14 +187,10 @@ def frustum_ref(pack: TreePack, orig: torch.Tensor, dirn: torch.Tensor,
         seg_min = torch.where(tests[3], tests[2], float("inf")).reshape(c, 32, nseg, -1).amin(3)
         after = torch.minimum(sub[0][..., None], torch.cummin(seg_min, 2).values)
         tmax_after = torch.where(live[cur][..., None], after, neg_inf).amax(1)   # (c, nseg)
-        seg = torch.arange(nseg, device=dev)
-        full = (seg[None, :] + 1) * LEAF_BATCH <= total[:, None]
-        changed = full & (tmax_after < tm[:, None])
-        has = changed.any(1)
-        first = changed.int().argmax(1)
-        at = push & (qpos == ((first + 1) * LEAF_BATCH)[:, None])
-        lim = torch.where(has, at.int().argmax(1), _WINDOW - 1)
-        nodes += ((vis & (ar[None, :] <= lim[:, None])).sum(1) * nlive[cur]).sum()
+        has, first, lim = _cut(tmax_after, tm, total, push, qpos)
+        steps = (vis & (ar[None, :] <= lim[:, None])).sum(1)
+        nodes += (steps * nlive[cur]).sum()
+        warp_nodes += steps.sum()
         nxt = torch.where(has, end[jc.gather(1, lim[:, None]).squeeze(1)],
                           torch.maximum(p0 + _WINDOW, reach[:, -1]))
         done = nxt >= k
@@ -190,6 +209,6 @@ def frustum_ref(pack: TreePack, orig: torch.Tensor, dirn: torch.Tensor,
         cnt[cur] = torch.where(has | done, 0, total - kept)
         pos_node[cur] = nxt
     if visits is not None:
-        visits["nodes"] = visits.get("nodes", 0) + int(nodes)
-        visits["records"] = visits.get("records", 0) + int(records)
+        for key, val in zip(VISIT_KEYS, (nodes, records, warp_nodes)):
+            visits[key] = visits.get(key, 0) + int(val)
     return unbundle(best, n)

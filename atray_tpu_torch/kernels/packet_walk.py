@@ -15,11 +15,12 @@ kernel's padding with far rays. The culling is conservative, so the
 nearest hit is exact; against a per-ray walk an exact tie of coincident
 faces may pick the other face.
 
-On a CUDA tensor it launches ``csrc/packet_walk.cu``; on a CPU tensor it
-runs ``packet_ref``, the plain PyTorch version of the same walk, bundle by
-bundle with the kernel's votes and record order, so the two agree
-bit-for-bit (the kernel is built with ``--fmad=false``). ``interpret`` and
-``block_sub`` are not carried.
+On a CUDA tensor it launches ``csrc/packet_walk.cu``, which reads the
+pack's node records ``TreePack.cnodes`` (built at first use); on a CPU
+tensor it runs ``packet_ref``, the plain PyTorch version of the same walk,
+bundle by bundle with the kernel's votes and record order, so the two
+agree bit-for-bit (the kernel is built with ``--fmad=false``).
+``interpret`` and ``block_sub`` are not carried.
 """
 
 from __future__ import annotations
@@ -51,31 +52,36 @@ def _first_hit(pack: TreePack, orig: torch.Tensor, dirn: torch.Tensor,
     "records" (records tested times live rays); on the card the kernel
     counts them, at the cost of one sync. For diagnostics (the chip smoke
     test and the tests)."""
-    dev = check_treepack(pack, orig, dirn, "packet_walk")
+    dev = check_treepack(pack, orig, dirn, "packet_walk", derived=True)
     if dev.type == "cpu":
         return packet_ref(pack, orig, dirn, visits)
-    return _launch("atray_packet_walk", COUNTER, "packet_walk", pack, orig, dirn, visits)
+    return _launch("packet_walk", COUNTER, pack, orig, dirn, visits)
 
 
-def _launch(fn: str, counter, name: str, pack: TreePack, orig, dirn, visits) -> Hits:
-    """One launch of a ``TreePack`` lineage kernel (packet or frustum)."""
+def _launch(name: str, counter, pack: TreePack, orig, dirn, visits,
+            keys=("nodes", "records"), node_args=()) -> Hits:
+    """One launch of a ``TreePack`` lineage kernel (``packet_walk`` or
+    ``frustum_walk``, C function ``atray_<name>``) over the pack's node
+    records ``cnodes`` (followed by ``node_args`` in the C call) and its
+    stride-16 leaf records; with ``visits``, the kernel's counts of
+    ``keys`` are added to it."""
     lib = _build.load()
     n = orig.shape[0]
     dev = orig.device
     t, u, v = (torch.empty(n, dtype=torch.float32, device=dev) for _ in range(3))
     fid = torch.empty(n, dtype=torch.int32, device=dev)
-    stats = torch.zeros(2, dtype=torch.int64, device=dev) if visits is not None else None
+    stats = torch.zeros(len(keys), dtype=torch.int64, device=dev) if visits is not None else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, fn)(
-            orig.data_ptr(), dirn.data_ptr(), n, pack.nodebox.data_ptr(), pack.ctrl.data_ptr(),
-            pack.num_nodes, pack.tris.data_ptr(), pack.leaf_size,
+        rc = getattr(lib, f"atray_{name}")(
+            orig.data_ptr(), dirn.data_ptr(), n, pack.cnodes.data_ptr(), *node_args,
+            pack.tris.data_ptr(), pack.leaf_size,
             t.data_ptr(), u.data_ptr(), v.data_ptr(), fid.data_ptr(),
             stats.data_ptr() if stats is not None else None, stream)
     counter.launches += 1
     _build.check(rc, name)
     if stats is not None:
-        for key, val in zip(("nodes", "records"), stats.tolist()):
+        for key, val in zip(keys, stats.tolist()):
             visits[key] = visits.get(key, 0) + val
     return t, u, v, fid
 

@@ -121,16 +121,20 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     profiled ``HybridAccel`` render;
 13. the four lineage walks (``packet_walk``, ``frustum_walk`` over phase
     12's ``TreePack``; ``wide_frustum``, ``persistent_wide`` over its leaf-8
-    ``WideBVH``) against their plain versions under phase 7's rules, with
+    ``WideBVH``) against their plain versions (the ``TreePack`` walks bit
+    for bit on every ray, the others under phase 7's rules), with
     the kernels' own visit counts equal to the plain versions', on phase
     12's 65,536 mixed rays (whose incoherent warps overflow the 8-wide
     walks' leaf queue) and on 65,553 ragged primaries; then timed at full
-    width on phase 12's 2,073,600 primaries and bounce rays (a 262,144-ray
-    prefix where one launch passes 1 s) beside ``ppacket`` and
+    width on phase 12's 2,073,600 primaries and bounce rays (the three
+    frustum walks on a 262,144-ray prefix of the bounce rays, whose launch
+    on all of them takes a second or more) beside ``ppacket`` and
     ``wide_exact`` (held to ``wide_exact_ref`` on the leaf-8 ``WideBVH``
     there under phase 7's rules), each with its bound from the per-ray need
     (``ppacket_ref`` or ``wide_exact_ref`` visits), the ratio of the warp's
-    lockstep work to that need, launches and ptxas resources; the timed
+    lockstep work to that need, for the ``TreePack`` walks a second bound
+    from that work (``frustum_walk``'s interval test once a warp) and the
+    shared memory a block, launches and ptxas resources; the timed
     outputs are held against ``ppacket`` or ``wide_exact`` on the same
     rays (phase 7's rules), and ``persistent_wide``, whose warps take
     several bundles at that width (checked against the grid's warps),
@@ -180,6 +184,11 @@ INSTR_PER_RECORD = 15         # Phase B, every record: d x e2 (6 mul, 3 sub), de
 INSTR_PER_FRONT = 12          # a record facing the ray: o - p0 (3 sub), 1 / det, u (4 mul, 2 add), its test (2)
 INSTR_PER_U_IN = 26           # u in [0, 1]: q (6 mul, 3 sub), v and t (4 mul, 2 add each), the hit test (5)
 OPS_PER_NODE = 25             # slab test of one binary node box (ppacket)
+# the frustum walk's interval test of one node box (once a warp):
+# axis_t_bounds x 3, each 2 subtractions, 2 products, 2 sign compares, 2 NaN
+# tests, a max and a min; then tlo (3 max), hi3 (2 min) and the overlap
+# test (a min and a compare)
+OPS_PER_INTERVAL = 3 * 10 + 3 + 2 + 2
 TIE_PIXELS = 0.0005           # share of film pixels an exact tie may change
 FRAME_CHUNK = 2               # phase 3's chunk of the slice frame
 FRAME_BOUNCES = (1, 2)        # bounce 1 runs at full width; bounce 2 on, sorted and packed
@@ -1568,6 +1577,15 @@ def _first_routing_take(run):
     return got[0]
 
 
+def _bit_diffs(got, want) -> int:
+    """Rays whose (t, u, v, id) differ bit for bit between two hit tuples."""
+    import numpy as np
+
+    pairs = [(a.cpu().numpy().view(np.int32), b.cpu().numpy().view(np.int32))
+             for a, b in zip(got, want)]
+    return int(np.any([a != b for a, b in pairs], axis=0).sum())
+
+
 def _packet_compare(pack, o, d, label, gpu):
     """ppacket kernel vs plain version under phase 7's rules; returns (max
     error, kernel ms, plain ms, bound)."""
@@ -1580,9 +1598,8 @@ def _packet_compare(pack, o, d, label, gpu):
     visits = {}
     want = ppacket_ref(pack, o, d, visits=visits)
     torch.cuda.synchronize()
+    n_bits = _bit_diffs(got, want)
     (gt, gu, gv, gi), (wt, wu, wv, wi) = ([x.cpu().numpy() for x in r] for r in (got, want))
-    n_bits = int(np.any([a.view(np.int32) != b.view(np.int32)
-                         for a, b in ((gt, wt), (gu, wu), (gv, wv), (gi, wi))], axis=0).sum())
     hit = wi >= 0
     dt = np.abs(gt - wt)
     if np.any(dt > np.spacing(np.abs(wt).astype(np.float32))):
@@ -1700,7 +1717,11 @@ def _digest(film) -> str:
     return hashlib.sha256(film.detach().cpu().numpy().tobytes()).hexdigest()[:16]
 
 
-LINEAGE_CUT = 262_144     # rays timed instead of a set whose one launch passes 1 s
+LINEAGE_CUT = 262_144     # the bounce rays' prefix timed for CUT_WALKS
+# the walks whose one launch on all the bounce rays takes a second or more:
+# timed on the prefix, so that their times compare across commits
+CUT_WALKS = ("frustum_walk", "wide_frustum", "persistent_wide")
+BIT_EQUAL = ("packet_walk", "frustum_walk")   # held to their plain versions bit for bit
 LINEAGE = (               # (counter, table, TPU kernel it replaces)
     ("packet_walk", "pack", "atray_tpu/kernels/traverse_pallas.py:137"),
     ("frustum_walk", "pack", "atray_tpu/kernels/frustum_pallas.py:57"),
@@ -1747,6 +1768,25 @@ def _lineage_ops(kind: str, v) -> float:
     return v["nodes"] * per_node + v["records"] * OPS_PER_RECORD
 
 
+def _warp_ops(name: str, work) -> float:
+    """Operations of a ``TreePack`` walk's own work: every live lane's
+    record tests, and the node tests as the walk takes them: a slab test a
+    lane (``packet_walk``) or the interval test once a warp
+    (``frustum_walk``'s "warp_nodes")."""
+    if name == "frustum_walk":
+        return work["warp_nodes"] * OPS_PER_INTERVAL + work["records"] * OPS_PER_RECORD
+    return _lineage_ops("pack", work)
+
+
+def _smem_line(name: str, pack) -> str:
+    """Dynamic shared memory a block of a ``TreePack`` walk's launch."""
+    from atray_tpu_torch.kernels import _build
+
+    if name == "frustum_walk":
+        return f"{_build.load().atray_frustum_walk_smem(pack.leaf_size)} B dynamic"
+    return "0 B dynamic"
+
+
 def _hold(got, want, what):
     """Phase 7's rules for hits ``got`` against ``want`` (plain version or
     per-ray kernel): t within 1 ulp, u and v within 1e-6 where the ids
@@ -1770,9 +1810,10 @@ def _hold(got, want, what):
 
 
 def _lineage_compare(name, acc, o, d, label, gpu):
-    """Lineage kernel vs its plain version under phase 7's rules, and the
-    kernel's own visit counts equal to the plain version's. Returns (max
-    error, plain ms, visits)."""
+    """Lineage kernel vs its plain version, bit for bit on every ray for the
+    ``TreePack`` walks (``BIT_EQUAL``), under phase 7's rules for the others,
+    and the kernel's own visit counts equal to the plain version's. Returns
+    (max error, plain ms, visits)."""
     import torch
 
     _, counted, ref = _lineage_fns()[name]
@@ -1783,16 +1824,27 @@ def _lineage_compare(name, acc, o, d, label, gpu):
     want = ref(acc, o, d, visits=pv)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    max_dt, uverr, ndiff, nhit = _hold(got, want, f"{name} {label} vs plain")
+    if name in BIT_EQUAL:
+        n_bits = _bit_diffs(got, want)
+        if n_bits:
+            raise AssertionError(f"{name} {label}: (t, u, v, id) differ bit for bit from the "
+                                 f"plain version on {n_bits} rays")
+        nhit, err = int((want[3] >= 0).sum()), 0.0
+        held = "(t, u, v, id) == plain version bit for bit on every ray"
+    else:
+        max_dt, uverr, ndiff, nhit = _hold(got, want, f"{name} {label} vs plain")
+        err = max(max_dt, uverr)
+        held = (f"ids differ on {ndiff} (coincident faces), max |dt| {max_dt:.3g}, max u/v err "
+                f"{uverr:.3g}")
     if kv != pv:
         raise AssertionError(f"{name} {label}: kernel visits {kv} != plain visits {pv}")
     drained = (f", {kv['drain_warps']} of {-(-o.shape[0] // 32)} warps drained the leaf queue "
                f"in mid-walk ({kv['drains']} drains)" if "drains" in kv else "")
-    print(f"phase 13 {name} {label}: {o.shape[0]} rays ({nhit} hits): ids differ on {ndiff} "
-          f"(coincident faces), max |dt| {max_dt:.3g}, max u/v err {uverr:.3g}, kernel visits "
-          f"== plain visits ({kv['nodes']} nodes, {kv['records']} records){drained}; plain "
-          f"{plain_ms:.1f} ms [{gpu}]")
-    return max(max_dt, uverr), plain_ms, kv
+    warp = f", {kv['warp_nodes']} warp node steps" if "warp_nodes" in kv else ""
+    print(f"phase 13 {name} {label}: {o.shape[0]} rays ({nhit} hits): {held}, kernel visits "
+          f"== plain visits ({kv['nodes']} nodes, {kv['records']} records{warp}){drained}; "
+          f"plain {plain_ms:.1f} ms [{gpu}]")
+    return err, plain_ms, kv
 
 
 PLAIN_PIECE = 131_072     # rays per call of the plain version at full width
@@ -1881,9 +1933,9 @@ def phase_lineage(walks, gpu):
             acc = tabs[kind]
             oo, dd, cut = o, d, ""
             one = _events_ms(lambda: entry(acc, oo, dd), 1)
-            if one > 1000.0:
+            if label == "chunk bounce" and name in CUT_WALKS:
                 oo, dd = o[:LINEAGE_CUT].contiguous(), d[:LINEAGE_CUT].contiguous()
-                cut = f" (one launch on all {o.shape[0]} rays took {one:.1f} ms: cut)"
+                cut = f" (a prefix; one launch on all {o.shape[0]} rays took {one:.1f} ms)"
                 one = _events_ms(lambda: entry(acc, oo, dd), 1)
             reps = max(1, min(20, int(1000.0 / max(one, 1e-3))))
             ms = one if reps == 1 else _events_ms(lambda: entry(acc, oo, dd), reps)
@@ -1895,25 +1947,32 @@ def phase_lineage(walks, gpu):
             else:
                 need = walks["ppacket"][label][1]
             tab = sum(getattr(acc, k).nbytes for k in (
-                ("nodebox", "ctrl", "tris") if kind == "pack" else ("cboxes", "clinks", "tris")))
+                ("cnodes", "tris") if kind == "pack" else ("cboxes", "clinks", "tris")))
             io = oo.nbytes + dd.nbytes + 4 * 4 * oo.shape[0]
             bound = _bound(io + tab, _lineage_ops(kind, need))
             ratio = _lineage_ops(kind, work) / max(_lineage_ops(kind, need), 1.0)
-            timed[(name, label)] = (ms, bound, oo.shape[0])
+            warp_bound, own = None, ""
+            if kind == "pack":
+                warp_bound = _bound(io + tab, _warp_ops(name, work))
+                own = (f"; bound from the warp's own work {warp_bound[0]:.4f} ms by "
+                       f"{warp_bound[1]}, kernel at {ms / warp_bound[0]:.3f}x it")
+            timed[(name, label)] = (ms, bound, oo.shape[0], warp_bound)
+            steps = f", {work['warp_nodes']} warp node steps" if "warp_nodes" in work else ""
             print(f"phase 13 {name} {label}: {oo.shape[0]} rays{cut}, kernel {ms:.4f} ms (mean of "
                   f"{reps}), bound {bound[0]:.4f} ms by {bound[1]} (per-ray need "
                   f"{need['nodes']} nodes, {need['records']} records); the warp's own work "
-                  f"{work['nodes']} nodes, {work['records']} records, {ratio:.3f}x the need in "
-                  f"operations [{gpu}]")
+                  f"{work['nodes']} nodes, {work['records']} records{steps}, {ratio:.3f}x the "
+                  f"need in operations{own} [{gpu}]")
     counts = _read_counts()
     for name, _, _ in LINEAGE:
         launches, plain = counts[name]
         if launches <= 0 or plain:
             raise AssertionError(f"{name} at full width: {launches} launches, {plain} plain calls")
-        ms, bound, rays = timed[(name, "chunk bounce")]
-        res[name].update(launches=launches, ms=ms, bound=bound, rays=rays)
+        ms, bound, rays, warp_bound = timed[(name, "chunk bounce")]
+        res[name].update(launches=launches, ms=ms, bound=bound, rays=rays, warp_bound=warp_bound)
+        smem = f"; shared memory a block {_smem_line(name, tabs['pack'])}" if warp_bound else ""
         print(f"phase 13 {name}: {launches} launches at full width, plain calls 0; ptxas: "
-              f"{_ptxas(name)}")
+              f"{_ptxas(name)}{smem}")
 
     # the timed outputs against the per-ray kernels (which phases 7 and 12
     # hold to their plain versions at these shapes) under phase 7's rules
@@ -2059,8 +2118,10 @@ def phase_probes(dev, gpu):
 def _entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms, **rays):
     """One entry of the ``kernels`` line; the lineage walks add ``rays``
     (the rays of ``ms`` and ``bound_ms``) and ``plain_rays`` (of
-    ``plain_ms``), since their timed set is cut; the probes add the
-    ``variant`` timed and, for one-block kernels, ``one_sm_bound_ms``."""
+    ``plain_ms``), since their timed set is cut, the ``TreePack`` ones
+    also ``warp_bound_ms`` (the bound from the warp's own work); the
+    probes add the ``variant`` timed and, for one-block kernels,
+    ``one_sm_bound_ms``."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms, **rays}
@@ -2155,7 +2216,9 @@ def main() -> int:
         _entry(name, f"atray_tpu_torch/csrc/{name}.cu", replaces, lineage[name]["launches"],
                lineage[name]["err"], lineage[name]["ms"], lineage[name]["plain_ms"],
                lineage[name]["bound"], None, rays=lineage[name]["rays"],
-               plain_rays=lineage[name]["plain_rays"])
+               plain_rays=lineage[name]["plain_rays"],
+               **({"warp_bound_ms": lineage[name]["warp_bound"][0]}
+                  if lineage[name]["warp_bound"] else {}))
         for name, _, replaces in LINEAGE
     ] + [
         _entry(name, f"atray_tpu_torch/csrc/{source}", replaces, probes[name]["launches"],

@@ -22,7 +22,7 @@ from atray_tpu.kernels.traverse_pallas import pallas_first_hit as jax_packet  # 
 from test_torch_render import jax_builder  # noqa: E402
 
 from atray_tpu_torch.accel.bvh import build_bvh  # noqa: E402
-from atray_tpu_torch.accel.pack import pack_bvh  # noqa: E402
+from atray_tpu_torch.accel.pack import TreePack, pack_bvh  # noqa: E402
 from atray_tpu_torch.accel.traverse import bvh_first_hit  # noqa: E402
 from atray_tpu_torch.config import KDTreeConfig  # noqa: E402
 from atray_tpu_torch.core.camera import camera_rays, look_at_camera  # noqa: E402
@@ -207,6 +207,97 @@ def test_counters_and_visits(walk, monkeypatch):
     small = {}
     ref_fn(pack, o[:4].contiguous(), d[:4].contiguous(), visits=small)
     assert small["nodes"] % 4 == 0 and small["records"] % (4 * pack.leaf_size) == 0
+
+
+def _frustum_at(monkeypatch, window, pack, o, d):
+    """``frustum_ref``'s hits (numpy) and visits with a window of
+    ``window`` skip-link positions a step."""
+    monkeypatch.setattr(frustum_walk, "_WINDOW", window)
+    visits = {}
+    got = frustum_ref(pack, torch.from_numpy(o), torch.from_numpy(d), visits=visits)
+    return [x.numpy() for x in got], visits
+
+
+def _assert_same_walk(got, want):
+    (hits, visits), (want_hits, want_visits) = got, want
+    for a, b in zip(hits, want_hits):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+    assert visits == want_visits
+
+
+@pytest.mark.parametrize("window", [1, 32, 128])
+@pytest.mark.parametrize("leaf_size", [8, 16])
+def test_frustum_window_width_keeps_hits_and_visits(window, leaf_size, monkeypatch):
+    # width 1 is the one-node-a-step walk, 32 the kernel's window; every
+    # width tests the same leaves with the same tmax, so hits (bit for bit)
+    # and visits, "warp_nodes" included, are width 1's, and the hits are the
+    # per-ray walk's
+    _, pack, _ = _tables(leaf_size)
+    o, d = lineage_rays()
+    got = _frustum_at(monkeypatch, window, pack, o, d)
+    _assert_same_walk(got, _frustum_at(monkeypatch, 1, pack, o, d))
+    per_ray = [x.numpy() for x in ppacket_ref(pack, torch.from_numpy(o), torch.from_numpy(d))]
+    _assert_same_walk((got[0], {}), (per_ray, {}))
+    assert got[1]["warp_nodes"] * 32 >= got[1]["nodes"] > 0
+
+
+def test_frustum_rollback_after_a_lowering_flush(monkeypatch):
+    # a coherent bundle in front of the mesh: a flush inside a window of 32
+    # lowers tmax, the window is cut just after the leaf that filled the
+    # queue, and the walk resumes there with the new bound
+    _, pack, _ = _tables(8)
+    xs, ys = np.meshgrid(np.linspace(-0.3, 0.3, 8), np.linspace(-0.3, 0.3, 4))
+    o = np.stack([xs.ravel(), ys.ravel(), np.full(32, 1.0)], 1).astype(np.float32)
+    d = np.tile(np.float32([0.0, 0.0, -1.0]), (32, 1))
+    cuts = []
+
+    def spy(*args):
+        has, first, lim = cut(*args)
+        cuts.extend(int(x) for x in lim[has])
+        return has, first, lim
+
+    cut = frustum_walk._cut
+    monkeypatch.setattr(frustum_walk, "_cut", spy)
+    got = _frustum_at(monkeypatch, 32, pack, o, d)
+    assert any(x < 31 for x in cuts)          # a cut before the window's last position
+    assert (got[0][3] >= 0).all()
+    _assert_same_walk(got, _frustum_at(monkeypatch, 1, pack, o, d))
+
+
+def _three_node_pack():
+    """A root over two one-triangle leaves (leaf_size 1): the left leaf a
+    triangle in z = 0 over [0, 1]^2, the right one in z = -1 over [2, 3] x
+    [0, 1]; DFS preorder 0 (root), 1 (left), 2 (right)."""
+    nodebox = np.float32([[0, 0, 2], [0, 0, 0], [-1, 0, -1], [3, 1, 3], [1, 1, 1], [0, 0, -1]])
+    ctrl = np.int32([[-1, 2, -1], [-1, 0, 1]])
+    tris = np.zeros((2, 128), np.float32)
+    tris[:, 0::16] = tris[:, 1::16] = tris[:, 2::16] = 1.0e30
+    for row, (x0, z) in enumerate(((0.0, 0.0), (2.0, -1.0))):
+        tris[row, 0:9] = [x0, 0, z, 1, 0, 0, 0, 1, 0]     # p0, e1, e2 (facing +z)
+        tris[row, 9] = np.int32(10 + row).view(np.float32)
+    return TreePack(nodebox=torch.from_numpy(nodebox), ctrl=torch.from_numpy(ctrl),
+                    tris=torch.from_numpy(tris), leaf_size=1, num_nodes=3)
+
+
+@pytest.mark.parametrize("window", [1, 32])
+def test_frustum_warp_nodes_on_a_three_node_pack(window, monkeypatch):
+    # bundle 0 (32 rays down onto both leaves) visits all three nodes and
+    # tests both leaves; bundle 1 (8 live rays, aimed up) culls the root, so
+    # it visits one node. "warp_nodes" is the bundles' node steps summed,
+    # "nodes" each bundle's steps times its live rays.
+    pack = _three_node_pack()
+    xs = np.where(np.arange(32) % 2 == 0, 0.25, 2.25) + np.arange(32) * 0.01
+    o0 = np.stack([xs, np.full(32, 0.2), np.full(32, 2.0)], 1)
+    d0 = np.tile([0.0, 0.0, -1.0], (32, 1))
+    o1 = np.tile([0.5, 0.5, 2.0], (8, 1))
+    d1 = np.tile([0.0, 0.0, 1.0], (8, 1))
+    o = np.concatenate([o0, o1]).astype(np.float32)
+    d = np.concatenate([d0, d1]).astype(np.float32)
+    (t, _, _, fid), visits = _frustum_at(monkeypatch, window, pack, o, d)
+    assert visits == {"nodes": 3 * 32 + 1 * 8, "records": 2 * 1 * 32, "warp_nodes": 3 + 1}
+    np.testing.assert_array_equal(fid, np.r_[np.where(np.arange(32) % 2 == 0, 10, 11),
+                                             np.full(8, -1)])
+    np.testing.assert_array_equal(t[:32], np.where(np.arange(32) % 2 == 0, 2.0, 3.0))
 
 
 def test_wrappers_check_inputs():
