@@ -7,15 +7,11 @@
 // packs the overlap bits into a mask, and queues leaves for a straight-line
 // drain (qcap = 512, drained in mid-walk at qcap - 8). Here the bundle is
 // a warp: its bounds come from warp shuffles over the live lanes, lanes
-// 0-7 test one child each, __ballot_sync forms the mask, and the stack and
-// queue are per warp in shared memory (wide_walk.cuh). Four warps a block,
-// (192 + 512) x 4 bytes of shared memory a warp.
-//
-// What bounds it: as frustum_walk.cu, the lockstep union of the bundle. A
-// wide node costs one dependent row load and one ballot for 8 boxes, so a
-// coherent warp's walk is short; an incoherent warp passes nearly every
-// box and drains nearly every leaf against all 32 lanes, and then the
-// ray-triangle tests (about 45 float operations each) bound it.
+// 0-7 test one child each from the node's cnodes record, __ballot_sync
+// forms the mask, and the stack, queue, bounds and a ring of leaf slots
+// that drains stream records through are per warp in shared memory
+// (wide_walk.cuh, which also says what bounds the walk and what the
+// design does about it).
 
 #include "wide_walk.cuh"
 
@@ -23,51 +19,54 @@ using namespace lineage;
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+// the build takes 64 registers (capped for 16 blocks it took 61 and ran 4% slower)
+constexpr int kMinBlocks = 12;     // resident blocks an SM the registers must allow
 
-__global__ void __launch_bounds__(kWarpsPerBlock * kWarp) wide_frustum_kernel(
+__global__ void __launch_bounds__(kWideThreads, kMinBlocks) wide_frustum_kernel(
     const float* __restrict__ orig, const float* __restrict__ dirn, long long n,
-    const float* __restrict__ cboxes, const int* __restrict__ clinks, int num_nodes,
-    const float* __restrict__ tris, const int* __restrict__ tris_i, int leaf_size,
+    const int* __restrict__ nodes, const float4* __restrict__ tris4, int leaf_size,
     float* __restrict__ t_out, float* __restrict__ u_out, float* __restrict__ v_out,
     int* __restrict__ id_out, unsigned long long* __restrict__ stats) {
-    __shared__ int stack_s[kWarpsPerBlock][kStackCap];
-    __shared__ int queue_s[kWarpsPerBlock][kQCap];
-    const int w = threadIdx.x / kWarp;
-    const long long base = ((long long)blockIdx.x * kWarpsPerBlock + w) * kWarp;
+    extern __shared__ float4 smem[];
+    const long long base = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kWarp * kWarp;
     if (base >= n) return;                       // the whole warp is past the end
     const int lane = threadIdx.x % kWarp;
     const long long i = base + lane;
     const bool live = i < n;
     const Ray r = load_ray(orig, dirn, i, live);
-    const Bundle b = bundle_setup(r, live);
+    const WideWarp w = wide_warp(smem, leaf_size);
     Hit h;
     WideCounts wc;
-    wide_bundle_walk(b, r, lane, cboxes, clinks, num_nodes, tris, tris_i, leaf_size,
-                     stack_s[w], queue_s[w], h, wc);
+    wide_walk(w, r, live, lane, nodes, tris4, leaf_size, h, wc);
     if (live) store_hit(h, i, t_out, u_out, v_out, id_out);
     add_wide_stats(stats, lane, base, n, wc);
 }
 
 }  // namespace
 
-// Launches on ``stream``; ``stats`` (4 int64, or null) gains the visit
-// counts. ``stack_cap`` and ``qcap`` are the caller's STACK_CAP and QCAP:
-// cudaErrorInvalidValue unless they are kStackCap and kQCap. Returns
-// cudaGetLastError() of the launch.
+// Shared memory a block of the launch takes at ``leaf_size``.
+extern "C" int atray_wide_frustum_smem(int leaf_size) {
+    return (int)(kWideWarps * wide_warp_smem(leaf_size));
+}
+
+// Launches on ``stream``; ``nodes`` is the accel's cnodes table, ``tris``
+// its stride-16 leaf rows (16-byte aligned); ``stats`` (5 int64, or null)
+// gains the visit counts. ``stack_cap`` and ``qcap`` are the caller's
+// STACK_CAP and QCAP: cudaErrorInvalidValue unless they are kStackCap and
+// kQCap. Returns cudaGetLastError() of the launch.
 extern "C" int atray_wide_frustum(
-    const float* orig, const float* dirn, long long n,
-    const float* cboxes, const int* clinks, int num_nodes,
+    const float* orig, const float* dirn, long long n, const int* nodes,
     const float* tris, int leaf_size, int stack_cap, int qcap,
     float* t_out, float* u_out, float* v_out, int* id_out,
     unsigned long long* stats, void* stream) {
     if (stack_cap != kStackCap || qcap != kQCap) return (int)cudaErrorInvalidValue;
     if (n <= 0) return 0;
-    const long long warps = (n + kWarp - 1) / kWarp;
-    const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    wide_frustum_kernel<<<(unsigned)blocks, kWarpsPerBlock * kWarp, 0, (cudaStream_t)stream>>>(
-        orig, dirn, n, cboxes, clinks, num_nodes,
-        tris, reinterpret_cast<const int*>(tris), leaf_size,
+    const int smem = atray_wide_frustum_smem(leaf_size);
+    const int err = wide_smem_limit(wide_frustum_kernel, smem);
+    if (err != 0) return err;
+    const long long blocks = (n + kWideThreads - 1) / kWideThreads;
+    wide_frustum_kernel<<<(unsigned)blocks, kWideThreads, (size_t)smem, (cudaStream_t)stream>>>(
+        orig, dirn, n, nodes, reinterpret_cast<const float4*>(tris), leaf_size,
         t_out, u_out, v_out, id_out, stats);
     return (int)cudaGetLastError();
 }

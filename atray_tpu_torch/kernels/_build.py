@@ -71,16 +71,17 @@ _SIGNATURES = {
         [_P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 6
     ),
     "atray_frustum_walk_smem": [ctypes.c_int],
-    # the 8-wide lineage walks: rays, node tables, leaf rows, their stack
-    # and queue caps, 4 outputs, visit stats, stream
-    "atray_wide_frustum": (
-        [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P] + [ctypes.c_int] * 3 + [_P] * 6
-    ),
+    # the 8-wide lineage walks: rays, n, node records, stride-16 records,
+    # leaf size, their stack and queue caps, 4 outputs, visit stats (the
+    # persistent walk then its bundle counter and grid warps), stream; each
+    # one's shared memory a block, and the persistent grid, at a leaf size
+    "atray_wide_frustum": [_P, _P, ctypes.c_longlong, _P, _P] + [ctypes.c_int] * 3 + [_P] * 6,
     "atray_persistent_wide": (
-        [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P] + [ctypes.c_int] * 3 + [_P] * 6
-        + [ctypes.c_int, _P]
+        [_P, _P, ctypes.c_longlong, _P, _P] + [ctypes.c_int] * 3 + [_P] * 6 + [ctypes.c_int, _P]
     ),
-    "atray_persistent_wide_grid": [],
+    "atray_wide_frustum_smem": [ctypes.c_int],
+    "atray_persistent_wide_smem": [ctypes.c_int],
+    "atray_persistent_wide_grid": [ctypes.c_int],
     # the probes of the lane routing (``probes/``): operands, output, sizes, stream
     "atray_probe_dot": [_P, _P, _P] + [ctypes.c_int] * 4 + [_P],
     "atray_probe_dot_bf16": [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P],

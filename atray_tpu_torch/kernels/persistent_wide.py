@@ -12,15 +12,16 @@ in and out by DMA, because a per-program copy of the tables dominated
 there. On the GPU the tables stay in device memory and no per-block copy
 happens, so what carries over is the persistent work distribution: the
 grid holds as many blocks as fit on the card at once (the occupancy query
-times the SM count), and each warp takes 32-ray bundles from a global
-atomic counter until none are left (the persistent-threads loop of Aila
-and Laine, "Understanding the Efficiency of Ray Traversal on GPUs", HPG
-2009). The wrapper allocates the counter at each call. Each bundle runs
-``wide_frustum``'s walk. The reference's queue holds every leaf; a queue
-that size does not fit in shared memory (23,863 leaves of the
-139,000-triangle slice mesh at leaf size 8, 95 KB a warp), so the queue
-drains when full, as in ``wide_frustum``: the walk carries no ``tmax``, so
-the results are the same.
+at the launch's registers and shared memory, times the SM count; one warp
+a bundle where there are fewer bundles), and each warp takes 32-ray
+bundles from a global atomic counter until none are left (the
+persistent-threads loop of Aila and Laine, "Understanding the Efficiency
+of Ray Traversal on GPUs", HPG 2009). The wrapper allocates the counter
+at each call. Each bundle runs ``wide_frustum``'s walk. The reference's
+queue holds every leaf; a queue that size does not fit in shared memory
+(23,863 leaves of the 139,000-triangle slice mesh at leaf size 8, 95 KB a
+warp), so the queue drains when full, as in ``wide_frustum``: the walk
+carries no ``tmax``, so the results are the same.
 
 On a CUDA tensor it launches ``csrc/persistent_wide.cu``; on a CPU tensor
 it runs ``persistent_ref``, which is ``wide_frustum.wide_ref`` counted
@@ -43,13 +44,14 @@ from atray_tpu_torch.kernels.wide_frustum import QCAP, STACK_CAP, launch_wide, w
 COUNTER = _build.COUNTERS["persistent_wide"]
 
 
-def grid_warps(dev: torch.device) -> int:
-    """Warps of the persistent grid on ``dev``: resident blocks per SM at
-    the kernel's resources, times the SM count, times the warps of a
+def grid_warps(dev: torch.device, leaf_size: int) -> int:
+    """Warps of the persistent grid on ``dev`` at ``leaf_size``: resident
+    blocks per SM at the kernel's registers and shared memory (which
+    grows with the leaf size), times the SM count, times the warps of a
     block. A launch on more bundles than this has warps that take a second
     one."""
     with torch.cuda.device(dev):
-        warps = _build.load().atray_persistent_wide_grid()
+        warps = _build.load().atray_persistent_wide_grid(leaf_size)
     if warps <= 0:
         _build.check(-warps or 1, "persistent_wide occupancy query")
     return warps
@@ -64,10 +66,10 @@ def _first_hit(wbvh: WideBVH, orig: torch.Tensor, dirn: torch.Tensor,
                visits: Optional[dict] = None) -> Hits:
     """``persistent_first_hit`` with ``wide_frustum._first_hit``'s
     ``visits``, for diagnostics."""
-    dev = check_wide(wbvh, orig, dirn, "persistent_wide", STACK_CAP)
+    dev = check_wide(wbvh, orig, dirn, "persistent_wide", STACK_CAP, derived=True)
     if dev.type == "cpu":
         return persistent_ref(wbvh, orig, dirn, visits)
-    warps = grid_warps(dev)
+    warps = grid_warps(dev, wbvh.leaf_size)
     counter = torch.zeros(1, dtype=torch.int64, device=dev)
     return launch_wide("atray_persistent_wide", COUNTER, "persistent_wide", wbvh, orig, dirn,
                        visits, extra=(counter.data_ptr(), warps))

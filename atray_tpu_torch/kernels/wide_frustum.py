@@ -8,15 +8,19 @@ directions and returns ``(t, u, v, fid)``, ``(INF, 0, 0, -1)`` on a miss.
 The bundle is a warp of 32 consecutive rays with the interval bounds of
 ``frustum_walk`` (12 warp reductions over the live lanes). The warp keeps
 one stack of wide nodes and one leaf queue in shared memory. At each
-popped node lanes 0-7 each take the interval test of one child box (no
+popped node lanes 0-7 each read one child's box and link from the node's
+record in ``WideBVH.cnodes`` and take the interval test of its box (no
 ``tmax`` term, as in the reference), ``__ballot_sync`` packs the overlap
 bits, and the children are pushed in slot order: interior ones onto the
 stack, leaves ``-(link + 1)`` into the queue. Empty slots are skipped by
 their link (``INT32_MIN``), never by their inverted boxes. The queue holds
 ``QCAP = 512`` leaves and is drained in mid-walk once it holds
 ``QCAP - 8``; at the end of the walk it is drained whole. A drain tests
-every queued leaf's records against every lane in queue order. The walk
-carries no ``tmax``, so where the drains fall does not change the result.
+every queued leaf's records against every lane in queue order, streaming
+them through a ring of leaf slots in the warp's shared memory (copied by
+``cp.async``, so ``tris`` must be 16-byte aligned) and testing two at a
+time. The walk carries no ``tmax``, so where the drains fall does not
+change the result.
 The test is conservative, so hits are exact; exact ties of coincident
 faces may pick the other face than a per-ray walk.
 
@@ -48,7 +52,7 @@ COUNTER = _build.COUNTERS["wide_frustum"]
 STACK_CAP = 192     # stack entries per warp; kStackCap in the .cu
 QCAP = 512          # leaf queue entries per warp; kQCap in the .cu
 _SUB = 32           # queued leaves the plain version tests per step
-VISIT_KEYS = ("nodes", "records", "drains", "drain_warps")
+VISIT_KEYS = ("nodes", "records", "drains", "drain_warps", "warp_nodes")
 
 
 def wide_first_hit(wbvh: WideBVH, orig: torch.Tensor, dirn: torch.Tensor) -> Hits:
@@ -60,10 +64,11 @@ def _first_hit(wbvh: WideBVH, orig: torch.Tensor, dirn: torch.Tensor,
                visits: Optional[dict] = None) -> Hits:
     """``wide_first_hit`` that, given a ``visits`` dict, adds "nodes"
     (wide-node pops times live rays), "records" (records tested times live
-    rays), "drains" (mid-walk queue drains) and "drain_warps" (warps with
-    at least one); on the card the kernel counts them, at the cost of one
-    sync. For diagnostics (the chip smoke test and the tests)."""
-    dev = check_wide(wbvh, orig, dirn, "wide_frustum", STACK_CAP)
+    rays), "drains" (mid-walk queue drains), "drain_warps" (warps with at
+    least one) and "warp_nodes" (wide-node pops, once a warp); on the card
+    the kernel counts them, at the cost of one sync. For diagnostics (the
+    chip smoke test and the tests)."""
+    dev = check_wide(wbvh, orig, dirn, "wide_frustum", STACK_CAP, derived=True)
     if dev.type == "cpu":
         return wide_ref(wbvh, orig, dirn, visits=visits)
     return launch_wide("atray_wide_frustum", COUNTER, "wide_frustum", wbvh, orig, dirn, visits)
@@ -71,21 +76,24 @@ def _first_hit(wbvh: WideBVH, orig: torch.Tensor, dirn: torch.Tensor,
 
 def launch_wide(fn: str, counter, name: str, wbvh: WideBVH, orig, dirn, visits,
                 extra=()) -> Hits:
-    """One launch of a ``WideBVH`` lineage kernel; ``extra`` are the
-    launcher's arguments between the visit stats and the stream. The
-    launcher refuses (cudaErrorInvalidValue) a ``STACK_CAP`` or ``QCAP``
-    other than the one it was compiled with."""
+    """One launch of a ``WideBVH`` lineage kernel on ``wbvh.cnodes`` and
+    ``wbvh.tris``; ``extra`` are the launcher's arguments between the visit
+    stats and the stream. The launcher refuses (cudaErrorInvalidValue) a
+    ``STACK_CAP`` or ``QCAP`` other than the one it was compiled with."""
+    if wbvh.tris.data_ptr() % 16:
+        raise ValueError("accel.tris must be 16-byte aligned")
     lib = _build.load()
     n = orig.shape[0]
     dev = orig.device
     t, u, v = (torch.empty(n, dtype=torch.float32, device=dev) for _ in range(3))
     fid = torch.empty(n, dtype=torch.int32, device=dev)
-    stats = torch.zeros(4, dtype=torch.int64, device=dev) if visits is not None else None
+    stats = (torch.zeros(len(VISIT_KEYS), dtype=torch.int64, device=dev)
+             if visits is not None else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, fn)(
-            orig.data_ptr(), dirn.data_ptr(), n, wbvh.cboxes.data_ptr(), wbvh.clinks.data_ptr(),
-            wbvh.num_nodes, wbvh.tris.data_ptr(), wbvh.leaf_size, STACK_CAP, QCAP,
+            orig.data_ptr(), dirn.data_ptr(), n, wbvh.cnodes.data_ptr(), wbvh.tris.data_ptr(),
+            wbvh.leaf_size, STACK_CAP, QCAP,
             t.data_ptr(), u.data_ptr(), v.data_ptr(), fid.data_ptr(),
             stats.data_ptr() if stats is not None else None, *extra, stream)
     counter.launches += 1
@@ -218,7 +226,8 @@ def wide_ref(wbvh: WideBVH, orig: torch.Tensor, dirn: torch.Tensor, qcap: int = 
         nlive = live.sum(1)
         counts = {"nodes": int((visited.sum(1) * nlive).sum()),
                   "records": int((total * nlive).sum()) * wbvh.leaf_size,
-                  "drains": int(drains.sum()), "drain_warps": int((drains > 0).sum())}
+                  "drains": int(drains.sum()), "drain_warps": int((drains > 0).sum()),
+                  "warp_nodes": int(visited.sum())}
         for key in VISIT_KEYS:
             visits[key] = visits.get(key, 0) + counts[key]
     return unbundle(best, n)

@@ -121,9 +121,8 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     profiled ``HybridAccel`` render;
 13. the four lineage walks (``packet_walk``, ``frustum_walk`` over phase
     12's ``TreePack``; ``wide_frustum``, ``persistent_wide`` over its leaf-8
-    ``WideBVH``) against their plain versions (the ``TreePack`` walks bit
-    for bit on every ray, the others under phase 7's rules), with
-    the kernels' own visit counts equal to the plain versions', on phase
+    ``WideBVH``) against their plain versions (bit for bit on every ray),
+    with the kernels' own visit counts equal to the plain versions', on phase
     12's 65,536 mixed rays (whose incoherent warps overflow the 8-wide
     walks' leaf queue) and on 65,553 ragged primaries; then timed at full
     width on phase 12's 2,073,600 primaries and bounce rays (the three
@@ -132,9 +131,10 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     ``wide_exact`` (held to ``wide_exact_ref`` on the leaf-8 ``WideBVH``
     there under phase 7's rules), each with its bound from the per-ray need
     (``ppacket_ref`` or ``wide_exact_ref`` visits), the ratio of the warp's
-    lockstep work to that need, for the ``TreePack`` walks a second bound
-    from that work (``frustum_walk``'s interval test once a warp) and the
-    shared memory a block, launches and ptxas resources; the timed
+    lockstep work to that need, a second bound from that work (the interval
+    test once a warp: ``frustum_walk``'s of a node, the wide walks' of each
+    of a popped node's 8 child boxes), at the float32 peak and at the issue
+    rate, and the shared memory a block, launches and ptxas resources; the timed
     outputs are held against ``ppacket`` or ``wide_exact`` on the same
     rays (phase 7's rules), and ``persistent_wide``, whose warps take
     several bundles at that width (checked against the grid's warps),
@@ -1721,7 +1721,8 @@ LINEAGE_CUT = 262_144     # the bounce rays' prefix timed for CUT_WALKS
 # the walks whose one launch on all the bounce rays takes a second or more:
 # timed on the prefix, so that their times compare across commits
 CUT_WALKS = ("frustum_walk", "wide_frustum", "persistent_wide")
-BIT_EQUAL = ("packet_walk", "frustum_walk")   # held to their plain versions bit for bit
+# held to their plain versions bit for bit (all four lineage walks)
+BIT_EQUAL = ("packet_walk", "frustum_walk", "wide_frustum", "persistent_wide")
 LINEAGE = (               # (counter, table, TPU kernel it replaces)
     ("packet_walk", "pack", "atray_tpu/kernels/traverse_pallas.py:137"),
     ("frustum_walk", "pack", "atray_tpu/kernels/frustum_pallas.py:57"),
@@ -1769,22 +1770,25 @@ def _lineage_ops(kind: str, v) -> float:
 
 
 def _warp_ops(name: str, work) -> float:
-    """Operations of a ``TreePack`` walk's own work: every live lane's
-    record tests, and the node tests as the walk takes them: a slab test a
-    lane (``packet_walk``) or the interval test once a warp
-    (``frustum_walk``'s "warp_nodes")."""
-    if name == "frustum_walk":
-        return work["warp_nodes"] * OPS_PER_INTERVAL + work["records"] * OPS_PER_RECORD
-    return _lineage_ops("pack", work)
+    """Operations of a lineage walk's own work: every live lane's record
+    tests, and the node tests as the walk takes them: a slab test a lane
+    (``packet_walk``), or the interval test once a warp ("warp_nodes": a
+    node of ``frustum_walk``, each of the 8 child boxes of a popped wide
+    node)."""
+    if name == "packet_walk":
+        return _lineage_ops("pack", work)
+    boxes = 1 if name == "frustum_walk" else 8      # interval tests a warp node step
+    return work["warp_nodes"] * boxes * OPS_PER_INTERVAL + work["records"] * OPS_PER_RECORD
 
 
-def _smem_line(name: str, pack) -> str:
-    """Dynamic shared memory a block of a ``TreePack`` walk's launch."""
+def _smem_line(name: str, acc) -> str:
+    """Dynamic shared memory a block of a lineage walk's launch on the
+    tables ``acc``."""
     from atray_tpu_torch.kernels import _build
 
-    if name == "frustum_walk":
-        return f"{_build.load().atray_frustum_walk_smem(pack.leaf_size)} B dynamic"
-    return "0 B dynamic"
+    if name == "packet_walk":
+        return "0 B dynamic"
+    return f"{getattr(_build.load(), f'atray_{name}_smem')(acc.leaf_size)} B dynamic"
 
 
 def _hold(got, want, what):
@@ -1811,8 +1815,8 @@ def _hold(got, want, what):
 
 def _lineage_compare(name, acc, o, d, label, gpu):
     """Lineage kernel vs its plain version, bit for bit on every ray for the
-    ``TreePack`` walks (``BIT_EQUAL``), under phase 7's rules for the others,
-    and the kernel's own visit counts equal to the plain version's. Returns
+    walks of ``BIT_EQUAL``, under phase 7's rules for any other, and the
+    kernel's own visit counts equal to the plain version's. Returns
     (max error, plain ms, visits)."""
     import torch
 
@@ -1860,7 +1864,7 @@ def _persistent_at_width(wide, o, d, got, work, same, same_work, label, gpu):
 
     from atray_tpu_torch.kernels.persistent_wide import grid_warps, persistent_ref
 
-    bundles, warps = -(-o.shape[0] // 32), grid_warps(o.device)
+    bundles, warps = -(-o.shape[0] // 32), grid_warps(o.device, wide.leaf_size)
     if bundles <= warps:
         raise AssertionError(f"persistent_wide {label}: {bundles} bundles for {warps} warps")
     if not all(torch.equal(a, b) for a, b in zip(got, same)) or work != same_work:
@@ -1946,16 +1950,17 @@ def phase_lineage(walks, gpu):
                 need_fn[kind](acc, oo, dd, visits=need)
             else:
                 need = walks["ppacket"][label][1]
-            tab = sum(getattr(acc, k).nbytes for k in (
-                ("cnodes", "tris") if kind == "pack" else ("cboxes", "clinks", "tris")))
+            tab = acc.cnodes.nbytes + acc.tris.nbytes
             io = oo.nbytes + dd.nbytes + 4 * 4 * oo.shape[0]
             bound = _bound(io + tab, _lineage_ops(kind, need))
             ratio = _lineage_ops(kind, work) / max(_lineage_ops(kind, need), 1.0)
-            warp_bound, own = None, ""
-            if kind == "pack":
-                warp_bound = _bound(io + tab, _warp_ops(name, work))
-                own = (f"; bound from the warp's own work {warp_bound[0]:.4f} ms by "
-                       f"{warp_bound[1]}, kernel at {ms / warp_bound[0]:.3f}x it")
+            # the warp's own work: at the float32 peak (an FMA two operations),
+            # and at the issue rate, since --fmad=false fuses no product
+            warp_bound = _bound(io + tab, _warp_ops(name, work))
+            issue = _bound(io + tab, instr=_warp_ops(name, work))
+            own = (f"; bound from the warp's own work {warp_bound[0]:.4f} ms by "
+                   f"{warp_bound[1]}, kernel at {ms / warp_bound[0]:.3f}x it; at the issue "
+                   f"rate {issue[0]:.4f} ms, kernel at {ms / issue[0]:.3f}x it")
             timed[(name, label)] = (ms, bound, oo.shape[0], warp_bound)
             steps = f", {work['warp_nodes']} warp node steps" if "warp_nodes" in work else ""
             print(f"phase 13 {name} {label}: {oo.shape[0]} rays{cut}, kernel {ms:.4f} ms (mean of "
@@ -1964,15 +1969,14 @@ def phase_lineage(walks, gpu):
                   f"{work['nodes']} nodes, {work['records']} records{steps}, {ratio:.3f}x the "
                   f"need in operations{own} [{gpu}]")
     counts = _read_counts()
-    for name, _, _ in LINEAGE:
+    for name, kind, _ in LINEAGE:
         launches, plain = counts[name]
         if launches <= 0 or plain:
             raise AssertionError(f"{name} at full width: {launches} launches, {plain} plain calls")
         ms, bound, rays, warp_bound = timed[(name, "chunk bounce")]
         res[name].update(launches=launches, ms=ms, bound=bound, rays=rays, warp_bound=warp_bound)
-        smem = f"; shared memory a block {_smem_line(name, tabs['pack'])}" if warp_bound else ""
         print(f"phase 13 {name}: {launches} launches at full width, plain calls 0; ptxas: "
-              f"{_ptxas(name)}{smem}")
+              f"{_ptxas(name)}; shared memory a block {_smem_line(name, tabs[kind])}")
 
     # the timed outputs against the per-ray kernels (which phases 7 and 12
     # hold to their plain versions at these shapes) under phase 7's rules
@@ -2118,8 +2122,8 @@ def phase_probes(dev, gpu):
 def _entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms, **rays):
     """One entry of the ``kernels`` line; the lineage walks add ``rays``
     (the rays of ``ms`` and ``bound_ms``) and ``plain_rays`` (of
-    ``plain_ms``), since their timed set is cut, the ``TreePack`` ones
-    also ``warp_bound_ms`` (the bound from the warp's own work); the
+    ``plain_ms``), since their timed set is cut, and ``warp_bound_ms``
+    (the bound from the warp's own work); the
     probes add the ``variant`` timed and, for one-block kernels,
     ``one_sm_bound_ms``."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2217,8 +2221,7 @@ def main() -> int:
                lineage[name]["err"], lineage[name]["ms"], lineage[name]["plain_ms"],
                lineage[name]["bound"], None, rays=lineage[name]["rays"],
                plain_rays=lineage[name]["plain_rays"],
-               **({"warp_bound_ms": lineage[name]["warp_bound"][0]}
-                  if lineage[name]["warp_bound"] else {}))
+               warp_bound_ms=lineage[name]["warp_bound"][0])
         for name, _, replaces in LINEAGE
     ] + [
         _entry(name, f"atray_tpu_torch/csrc/{source}", replaces, probes[name]["launches"],

@@ -3,8 +3,8 @@
 (``persistent_pallas.py::_persistent_kernel``). Their plain versions
 against the JAX kernels in interpret mode and against the port's per-ray
 walks, pad records and empty wide slots, the axis-aligned bundle, the
-queue drains, the counters, and on a card the kernels against their plain
-versions."""
+queue drains, the counters and the warp's node pops, the wrappers' input
+checks, and on a card the kernels against their plain versions."""
 
 import dataclasses
 
@@ -30,7 +30,9 @@ from atray_tpu_torch.config import KDTreeConfig  # noqa: E402
 from atray_tpu_torch.kernels import _build, persistent_wide, wide_frustum  # noqa: E402
 from atray_tpu_torch.kernels.persistent_wide import persistent_first_hit, persistent_ref  # noqa: E402
 from atray_tpu_torch.kernels.wide_exact import wide_exact_ref  # noqa: E402
-from atray_tpu_torch.kernels.wide_frustum import wide_first_hit, wide_ref  # noqa: E402
+from atray_tpu_torch.kernels._plain import bundles  # noqa: E402
+from atray_tpu_torch.kernels.wide_frustum import (  # noqa: E402
+    VISIT_KEYS, _child_overlap, launch_wide, wide_first_hit, wide_ref)
 from atray_tpu_torch.scene import procedural  # noqa: E402
 
 WALKS = {"wide": (wide_first_hit, wide_ref, jax_wide, "wide_frustum"),
@@ -148,6 +150,31 @@ def test_counters_and_visits(walk, monkeypatch):
     ref_fn(wide, o, d, visits=again)
     assert visits == again and visits["nodes"] > 0 and visits["records"] > 0
     assert visits["records"] % wide.leaf_size == 0
+    # 100 rays: 3 full warps and one of 4 live lanes; every pop counts once
+    # a warp in "warp_nodes" and once a live lane in "nodes"
+    assert set(visits) == set(VISIT_KEYS)
+    assert 0 < visits["warp_nodes"] * 4 <= visits["nodes"] <= visits["warp_nodes"] * 32
+
+
+def test_warp_nodes_equal_a_stack_walk():
+    # "warp_nodes" (and "nodes") of the plain version against a per-bundle
+    # stack walk over the links: pop, push each overlapping interior child
+    _, wide, _ = _tables(8)
+    o, d = (torch.from_numpy(x) for x in lineage_rays(611, seed=4))
+    visits = {}
+    wide_ref(wide, o, d, visits=visits)
+    bo, bd, live = bundles(o, d)
+    ov = _child_overlap(wide, bo, bd, live).numpy()
+    links = wide.clinks.numpy()
+    pops = np.zeros(bo.shape[0], np.int64)
+    for b in range(bo.shape[0]):
+        stack = [0]
+        while stack:
+            node = stack.pop()
+            pops[b] += 1
+            stack += [int(links[c, node]) for c in range(8) if links[c, node] >= 0 and ov[b, node, c]]
+    assert visits["warp_nodes"] == int(pops.sum()) > 2 * bo.shape[0]
+    assert visits["nodes"] == int((pops * live.sum(1).numpy()).sum())
 
 
 def test_wrappers_check_inputs():
@@ -170,6 +197,32 @@ def test_wrappers_check_inputs():
             entry(dataclasses.replace(wide, max_depth=40), o, d)
 
 
+def test_launch_rejects_unaligned_tris(monkeypatch):
+    # the kernels copy leaf records as 16-byte words: a tris view 4 bytes
+    # off a 16-byte boundary is refused before the library is loaded (the
+    # wrappers reach this launch only on a CUDA device)
+    def no_build():
+        raise AssertionError("the alignment check must come first")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    _, wide, _ = _tables(8)
+    flat = torch.zeros(wide.tris.numel() + 4)
+    flat[1:1 + wide.tris.numel()] = wide.tris.reshape(-1)
+    bad = dataclasses.replace(wide, tris=flat[1:1 + wide.tris.numel()].view(wide.tris.shape))
+    assert bad.tris.is_contiguous() and bad.tris.data_ptr() % 16 == 4
+    o, d = (torch.from_numpy(x[:40].copy()) for x in lineage_rays())
+    for fn, name, extra in (("atray_wide_frustum", "wide_frustum", ()),
+                            ("atray_persistent_wide", "persistent_wide", (0, 1))):
+        c = _build.COUNTERS[name]
+        before = c.launches
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            launch_wide(fn, c, name, bad, o, d, None, extra=extra)
+        assert c.launches == before
+    # the plain versions take the same view and give the same hits
+    for a, b in zip(wide_ref(bad, o, d), wide_ref(wide, o, d)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
     if not torch.cuda.is_available():
@@ -177,6 +230,8 @@ def test_cuda_kernels_match_plain_versions():
     dev = torch.device("cuda")
     mesh = procedural.dragon_proxy(target_tris=20000)
     rng = np.random.default_rng(5)
+    # leaf 16: a mid-walk drain streams over 500 queued leaves of two rows
+    # each through the warp's ring of leaf slots, many times round
     for leaf_size in (8, 16):
         wide = make_accel(mesh.vertices, mesh.faces, KDTreeConfig(leaf_size=leaf_size)).to(dev)
         o = rng.uniform(-3, 3, (4099, 3)).astype(np.float32)
@@ -190,11 +245,11 @@ def test_cuda_kernels_match_plain_versions():
             torch.cuda.synchronize()
             for a, b in zip(got, want):
                 assert torch.equal(a, b)
-            assert kv == pv and kv["drain_warps"] > 0
+            assert kv == pv and kv["drain_warps"] > 0 and kv["warp_nodes"] > 0
     # twice as many bundles as the persistent grid has warps, so warps take
     # more bundles and reuse their shared stack and queue: equal, visits
     # included, to the one-bundle-a-warp kernel held to its plain version above
-    n = 2 * persistent_wide.grid_warps(dev) * 32 + 17
+    n = 2 * persistent_wide.grid_warps(dev, wide.leaf_size) * 32 + 17
     o = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
     d = rng.normal(size=(n, 3))
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
@@ -204,4 +259,10 @@ def test_cuda_kernels_match_plain_versions():
     want = COUNTED["wide"](wide, o, d, visits=fv)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert kv == fv
+    assert kv == fv and kv["warp_nodes"] > 0
+    # a tris view off a 16-byte boundary is refused on the card
+    flat = torch.zeros(wide.tris.numel() + 4, device=dev)
+    bad = dataclasses.replace(wide, tris=flat[1:1 + wide.tris.numel()].view(wide.tris.shape))
+    for entry, _, _, _ in WALKS.values():
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            entry(bad, o, d)
