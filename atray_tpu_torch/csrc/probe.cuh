@@ -10,7 +10,10 @@
 // calls mbar_expect_tx with the stage's total bytes and then bulk_g2s for
 // each piece; every thread calls mbar_wait with the barrier's current phase
 // bit and flips its copy of the bit. Addresses and sizes must be multiples
-// of 16 bytes.
+// of 16 bytes. A ring also needs the reverse: consumers mbar_arrive on a
+// stage's "empty" barrier after their last read, and the producer waits on
+// it before a refill. Small pieces can go by cp_async_16 instead, tracked by
+// the same barrier through cp_async_mbar_arrive.
 
 #pragma once
 
@@ -37,6 +40,17 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                  : "memory");
 }
 
+// One plain arrival (a consumer's release of a stage).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Orders this thread's later plain shared-memory accesses after the bulk
+// copies that completed before it (reuse of a copy's target).
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t bytes,
                                          uint64_t* bar) {
     asm volatile(
@@ -44,6 +58,18 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t by
             smem_addr(dst)),
         "l"(src), "r"(bytes), "r"(smem_addr(bar))
         : "memory");
+}
+
+// 16 bytes from device memory into shared memory by cp.async (bypassing L1).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+                 : "memory");
+}
+
+// The barrier's current phase also waits for this thread's earlier
+// cp.async copies: one pending arrival now, released when they land.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+    asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
 
 // Spin until the barrier's phase of parity ``parity`` has completed.

@@ -10,8 +10,8 @@
 // Each TPU kernel runs on one core with no grid, so each port runs one block:
 // the question is one core's cost, and the answer here is one SM's.
 //
-// Layout: out is (M, 128); thread n of 128 owns column n and holds the M
-// sums in registers. Each rep re-reads the operands from shared memory (an
+// P1-P3 layout: out is (M, 128); thread n of 128 owns column n and holds the
+// M sums in registers. Each rep re-reads the operands from shared memory (an
 // empty asm with a memory clobber keeps the compiler from hoisting the
 // loop-invariant product out of the rep loop), forms the product p = a . b
 // from zero and adds it to the sum, as the TPU kernel adds dot(a, b) to its
@@ -24,15 +24,37 @@
 // 32 banks. P3 runs on the tensor cores, mma.sync m16n8k16 bf16 -> f32, the
 // M=14 case padded to 16 rows with zero registers (the inputs stay 14 rows).
 //
-// Shared memory: P1-P3 keep a and b resident (b is 64 KiB). For P4 at K=4096
-// b alone is 2 MiB, far above the 227 KB a block can have, so P4 and P5
-// stream 128-deep K-slices of a and b (72 KiB a slice) through a
-// double-buffered ring of bulk copies (probe.cuh) on every rep: one wide
-// product becomes K/128 narrow ones fed from L2, and its cost per slice is
-// the L2-to-SM rate against the FFMA rate of one SM.
+// P4 and P5 (probe_dot_stream_kernel): at K=4096 b alone is 2 MiB, far above
+// the 227 KB a block can have, so a and b pass through shared memory in
+// 128-deep slices on every rep (72,704 B a slice at M=14, 73,728 at M=16).
+// - Eight consumer warps split every slice over K: warp w takes rows
+//   [16 w, 16 w + 16) of it. A lane holds a register tile of all M rows x 4
+//   adjacent columns (col = 4 lane): per k one 16-byte load of b's row k (a
+//   warp reads the whole 512-byte row, conflict-free, and no other warp reads
+//   it) and per four k one broadcast 16-byte load of a's row i, so 18 shared
+//   loads feed 4 M x 4 FFMA; two warps a scheduler.
+// - A ninth warp produces into a ring of three one-slice stages. Each stage
+//   has a full mbarrier (a's M rows as 16-byte cp.async pieces over the
+//   warp's lanes, then expect-tx and one bulk copy of b's slice) and an
+//   empty mbarrier on which each consumer warp arrives after its last read
+//   of the stage; the producer waits on it before a refill. No block-wide
+//   barrier sits in the loop. Where the slices fit the stages (K <= 384) a
+//   separate instance fills them once and never refills them, as the TPU
+//   kernel's operands sat in VMEM every rep.
+// - The rep loop is outermost: each rep a warp forms its partial product from
+//   zero over its share of every slice and adds it to its own carry. After
+//   the last rep the carries meet in shared memory (the ring is free by then)
+//   and are summed in a fixed order, warp 0 first. P5 is the same kernel with
+//   the warps in four groups of two, group j taking slice j (32 rows a warp),
+//   so group j's carries sum to acc_j and out = ((acc_0 + acc_1) + acc_2) +
+//   acc_3, the plain version's order.
 //
 // What bounds it: float32 (P3: bf16 tensor) operations of one SM; the card
-// bound over 132 SMs is reported beside the one-SM bound.
+// bound over 132 SMs is reported beside the one-SM bound. P4 and P5 also need
+// 72.7 KB of L2-to-SM stream a slice: this ring alone, with no FFMA, moves a
+// slice in 0.39 us (186 GB/s into one SM; a bulk copy for each of a's rows
+// instead took 0.71 us), against about 0.9 us of FFMA at the one-SM bound
+// (PERF.md, the P4/P5 ladder).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,83 +120,180 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < M; ++i) out[i * kN + n] = acc[i];
 }
 
-// Thread 0: slice s of a (M, K) and b (K, 128) into one stage of the ring.
+// P4 and P5: consumer warps, the producer warp, and the ring's stages.
+constexpr int kWarps = 8;                          // consumer warps
+constexpr int kStages = 3;                         // one 128-deep slice a stage
+constexpr int kStreamThreads = 32 * (kWarps + 1);  // and the producer warp
+
+// Floats of a stage: a's (M, 128) slice, then b's (128, 128) slice.
 template <int M>
-__device__ __forceinline__ void issue_slice(const float* a, const float* b, int k, int s,
-                                            float* a_s, float* b_s, uint64_t* bar) {
-    mbar_expect_tx(bar, (M * kS + kS * kN) * 4);
-    bulk_g2s(b_s, b + (long long)s * kS * kN, kS * kN * 4, bar);
-    for (int i = 0; i < M; ++i) bulk_g2s(a_s + i * kS, a + (long long)i * k + s * kS, kS * 4, bar);
+__host__ __device__ constexpr int stage_floats() {
+    return M * kS + kS * kN;
 }
 
-// P4 (INDEP false): per rep p = a . b over all K/128 slices, then acc += p.
-// P5 (INDEP true, K = 512): per rep acc_j += a_j . b_j for the four slices,
-// and out = acc_0 + acc_1 + acc_2 + acc_3 at the end.
-template <int M, bool INDEP>
-__global__ void __launch_bounds__(kThreads)
+// Dynamic shared memory of P4 and P5: the stages, then the full and empty
+// barriers.
+template <int M>
+__host__ __device__ constexpr int stream_smem() {
+    return kStages * stage_floats<M>() * 4 + 2 * kStages * 8;
+}
+
+// p[i][j] += a[i, k] b[k, col + j] over the E-deep share at a_s (row stride
+// 128) and b_s.
+template <int M, int E>
+__device__ __forceinline__ void share_product(const float* __restrict__ a_s,
+                                              const float* __restrict__ b_s, int col,
+                                              float (&p)[M][4]) {
+#pragma unroll 1
+    for (int k = 0; k < E; k += 4) {
+        float4 bv[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) bv[q] = *reinterpret_cast<const float4*>(b_s + (k + q) * kN + col);
+#pragma unroll
+        for (int i = 0; i < M; ++i) {
+            const float4 av = *reinterpret_cast<const float4*>(a_s + i * kS + k);
+            const float bq[4][4] = {{bv[0].x, bv[0].y, bv[0].z, bv[0].w},
+                                    {bv[1].x, bv[1].y, bv[1].z, bv[1].w},
+                                    {bv[2].x, bv[2].y, bv[2].z, bv[2].w},
+                                    {bv[3].x, bv[3].y, bv[3].z, bv[3].w}};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                p[i][j] = fmaf(av.x, bq[0][j], p[i][j]);
+                p[i][j] = fmaf(av.y, bq[1][j], p[i][j]);
+                p[i][j] = fmaf(av.z, bq[2][j], p[i][j]);
+                p[i][j] = fmaf(av.w, bq[3][j], p[i][j]);
+            }
+        }
+    }
+}
+
+// The producer warp's lanes: slice s of a (M, K) and b (K, 128) into a
+// stage. a's M rows go as 16-byte cp.async pieces spread over the lanes
+// (bulk copies are issued one after another, and a bulk copy for each
+// 512-byte row took as long as b's whole 64 KB one), tracked by the full
+// barrier; lane 0 then adds b's slice as one bulk copy.
+template <int M>
+__device__ __forceinline__ void issue_slice(const float* a, const float* b, int k, int s,
+                                            float* stage, uint64_t* full, int lane) {
+    constexpr int kRow = kS / 4;                   // 16-byte pieces a row
+    for (int p = lane; p < M * kRow; p += 32)
+        cp_async_16(stage + (p / kRow) * kS + (p % kRow) * 4,
+                    a + (long long)(p / kRow) * k + s * kS + (p % kRow) * 4);
+    cp_async_mbar_arrive(full);
+    __syncwarp();
+    if (lane == 0) {
+        mbar_expect_tx(full, kS * kN * 4);
+        bulk_g2s(stage + M * kS, b + (long long)s * kS * kN, kS * kN * 4, full);
+    }
+}
+
+// P4 (G = 1): per rep each warp's partial product over its 16-deep share of
+// every slice, added to its carry; out = the carries summed, warp 0 first.
+// P5 (G = 4, K = 512): warp group j (two warps) takes slice j; out =
+// ((acc_0 + acc_1) + acc_2) + acc_3, acc_j the sum of group j's carries.
+// RING: the slices outnumber the stages, so stages are refilled; otherwise
+// each slice has its own stage, filled once (a separate instance, free of
+// the ring's bookkeeping).
+template <int M, int G, bool RING>
+__global__ void __launch_bounds__(kStreamThreads, 1)
     probe_dot_stream_kernel(const float* __restrict__ a, const float* __restrict__ b,
                             float* __restrict__ out, int k, int reps) {
     extern __shared__ __align__(128) float ring_smem[];
-    __shared__ __align__(8) uint64_t bar[2];
-    constexpr int kStage = M * kS + kS * kN;  // floats: a slice, then b slice
-    const int n = threadIdx.x;
+    constexpr int kStage = stage_floats<M>();
+    constexpr int kGroup = kWarps / G;             // warps a group
+    constexpr int kShare = kS / kGroup;            // rows of a slice a warp
+    static_assert(kWarps % G == 0 && kShare % 4 == 0, "a warp's share is whole 4-row steps");
+    static_assert(kWarps * M * kN <= kStages * kStage, "the carries fit the ring");
+    uint64_t* full = reinterpret_cast<uint64_t*>(ring_smem + kStages * kStage);
+    uint64_t* empty = full + kStages;
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
     const int slices = k / kS;
-    const long long total = (long long)reps * slices;
-    if (n == 0) {
-        mbar_init(&bar[0], 1);
-        mbar_init(&bar[1], 1);
+    const long long issued = reps > 0 ? (RING ? (long long)reps * slices : slices) : 0;
+    if (tid == 0) {
+        for (int s = 0; s < kStages; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], kWarps);
+        }
         fence_mbar_init();
     }
     __syncthreads();
-    if (n == 0 && total > 0) issue_slice<M>(a, b, k, 0, ring_smem, ring_smem + M * kS, &bar[0]);
+    const int g = w / kGroup, share = w % kGroup, col = lane * 4;
+    float carry[M][4];
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) carry[i][j] = 0.0f;
 
-    float acc[INDEP ? 4 : 1][M];
-    float p[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-        p[i] = 0.0f;
-#pragma unroll
-        for (int j = 0; j < (INDEP ? 4 : 1); ++j) acc[j][i] = 0.0f;
-    }
-    uint32_t phase = 0;  // bit st: the parity stage st waits on next
-    for (long long it = 0; it < total; ++it) {
-        const int st = (int)(it & 1);
-        const int s = (int)(it % slices);
-        float* a_s = ring_smem + st * kStage;
-        if (n == 0 && it + 1 < total) {
-            float* a_next = ring_smem + (st ^ 1) * kStage;
-            issue_slice<M>(a, b, k, (int)((it + 1) % slices), a_next, a_next + M * kS, &bar[st ^ 1]);
+    if (w == kWarps) {
+        // the producer: slice it % slices into stage it % kStages, once the
+        // consumers have released that stage's previous slice
+        int st = 0;
+        uint32_t ph = 0;
+        for (long long it = 0; it < issued; ++it) {
+            if (it >= kStages) mbar_wait(&empty[st], ph ^ 1u);
+            issue_slice<M>(a, b, k, (int)(it % slices), ring_smem + st * kStage, &full[st], lane);
+            if (++st == kStages) {
+                st = 0;
+                ph ^= 1u;
+            }
         }
-        mbar_wait(&bar[st], (phase >> st) & 1u);
-        phase ^= 1u << st;
-        slice_product<M, false>(a_s, a_s + M * kS, n, p);
-        if constexpr (INDEP) {
+    } else {
+        // Every warp waits on every slice's full barrier (also those of
+        // another group's slices) and releases every stage it waited on, so
+        // no barrier runs a phase ahead of a warp's parity.
+        int st = 0;
+        uint32_t ph = 0;
+        for (int r = 0; r < reps; ++r) {
+            asm volatile("" ::: "memory");
+            float p[M][4];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                if (s == j) {
+            for (int i = 0; i < M; ++i)
 #pragma unroll
-                    for (int i = 0; i < M; ++i) acc[j][i] = __fadd_rn(acc[j][i], p[i]);
+                for (int j = 0; j < 4; ++j) p[i][j] = 0.0f;
+            for (int s = 0; s < slices; ++s) {
+                const int stg = RING ? st : s;
+                mbar_wait(&full[stg], RING ? ph : 0u);
+                if (s % G == g) {
+                    const float* stage = ring_smem + stg * kStage;
+                    share_product<M, kShare>(stage + share * kShare,
+                                             stage + M * kS + share * kShare * kN, col, p);
+                }
+                if (RING) {
+                    __syncwarp();
+                    if (lane == 0) mbar_arrive(&empty[stg]);
+                    if (++st == kStages) {
+                        st = 0;
+                        ph ^= 1u;
+                    }
                 }
             }
 #pragma unroll
-            for (int i = 0; i < M; ++i) p[i] = 0.0f;
-        } else if (s == slices - 1) {
+            for (int i = 0; i < M; ++i)
 #pragma unroll
-            for (int i = 0; i < M; ++i) {
-                acc[0][i] = __fadd_rn(acc[0][i], p[i]);
-                p[i] = 0.0f;
-            }
+                for (int j = 0; j < 4; ++j) carry[i][j] = __fadd_rn(carry[i][j], p[i][j]);
         }
-        __syncthreads();  // the stage is free for the copy issued next
     }
+    // every issued copy was waited on, so the ring is free for the carries
+    __syncthreads();
+    fence_proxy_async();
+    float* red = ring_smem;                        // (kWarps, M, 128), warp order
+    if (w < kWarps) {
 #pragma unroll
-    for (int i = 0; i < M; ++i) {
-        if constexpr (INDEP) {
-            out[i * kN + n] =
-                __fadd_rn(__fadd_rn(__fadd_rn(acc[0][i], acc[1][i]), acc[2][i]), acc[3][i]);
-        } else {
-            out[i * kN + n] = acc[0][i];
+        for (int i = 0; i < M; ++i)
+            *reinterpret_cast<float4*>(red + (w * M + i) * kN + col) =
+                make_float4(carry[i][0], carry[i][1], carry[i][2], carry[i][3]);
+    }
+    __syncthreads();
+    for (int e = tid; e < M * kN; e += kStreamThreads) {
+        float o = 0.0f;
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+            float acc = red[j * kGroup * M * kN + e];
+#pragma unroll
+            for (int q = 1; q < kGroup; ++q) acc = __fadd_rn(acc, red[(j * kGroup + q) * M * kN + e]);
+            o = j == 0 ? acc : __fadd_rn(o, acc);
         }
+        out[e] = o;
     }
 }
 
@@ -259,7 +378,6 @@ int launch_f32(const float* a, const float* b, float* out, int k, int reps, int 
                cudaStream_t stream) {
     const int resident = (M * kS + kS * kN) * 4;
     const int transposed = (M * kS + kS * kPad) * 4;
-    const int ring = 2 * (M * kS + kS * kN) * 4;
     switch (variant) {
         case kNormal:
             return launch_block(probe_dot_resident_kernel<M, false>, kThreads, resident, stream, a,
@@ -268,11 +386,14 @@ int launch_f32(const float* a, const float* b, float* out, int k, int reps, int 
             return launch_block(probe_dot_resident_kernel<M, true>, kThreads, transposed, stream, a,
                                 b, out, reps);
         case kStreamK:
-            return launch_block(probe_dot_stream_kernel<M, false>, kThreads, ring, stream, a, b, out,
-                                k, reps);
-        case kIndep:
-            return launch_block(probe_dot_stream_kernel<M, true>, kThreads, ring, stream, a, b, out,
-                                k, reps);
+            if (k / kS > kStages)
+                return launch_block(probe_dot_stream_kernel<M, 1, true>, kStreamThreads,
+                                    stream_smem<M>(), stream, a, b, out, k, reps);
+            return launch_block(probe_dot_stream_kernel<M, 1, false>, kStreamThreads,
+                                stream_smem<M>(), stream, a, b, out, k, reps);
+        case kIndep:  // K = 512: always more slices than stages
+            return launch_block(probe_dot_stream_kernel<M, 4, true>, kStreamThreads,
+                                stream_smem<M>(), stream, a, b, out, k, reps);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -293,11 +414,28 @@ extern "C" int atray_probe_dot(const float* a, const float* b, float* out, int m
                                int variant, void* stream) {
     if ((variant == kNormal || variant == kTransposed) && k != kS) return (int)cudaErrorInvalidValue;
     if (variant == kIndep && k != 4 * kS) return (int)cudaErrorInvalidValue;
-    if (k <= 0 || k % kS) return (int)cudaErrorInvalidValue;
+    if (k <= 0 || k % kS || reps < 0) return (int)cudaErrorInvalidValue;
+    if ((variant == kStreamK || variant == kIndep) && ((uintptr_t)a | (uintptr_t)b) % 16)
+        return (int)cudaErrorMisalignedAddress;          // bulk copies move 16-byte units
     cudaStream_t s = (cudaStream_t)stream;
     if (m == 14) return launch_f32<14>(a, b, out, k, reps, variant, s);
     if (m == 16) return launch_f32<16>(a, b, out, k, reps, variant, s);
     return (int)cudaErrorInvalidValue;
+}
+
+// The launch shape of a variant at m rows: threads a block, dynamic shared
+// memory in bytes and (P4, P5) the ring's stages, into shape[0..2].
+extern "C" int atray_probe_dot_shape(int m, int variant, int* shape) {
+    if (m != 14 && m != 16) return (int)cudaErrorInvalidValue;
+    const bool stream = variant == kStreamK || variant == kIndep;
+    shape[0] = stream ? kStreamThreads : kThreads;
+    shape[2] = stream ? kStages : 0;
+    if (stream) {
+        shape[1] = m == 14 ? stream_smem<14>() : stream_smem<16>();
+    } else {
+        shape[1] = (m * kS + kS * (variant == kTransposed ? kPad : kN)) * 4;
+    }
+    return 0;
 }
 
 // P3: bf16 a (m, 128) with m in [1, 64], b (128, 128); out (m, 128) f32.

@@ -84,6 +84,7 @@ _SIGNATURES = {
     "atray_persistent_wide_grid": [ctypes.c_int],
     # the probes of the lane routing (``probes/``): operands, output, sizes, stream
     "atray_probe_dot": [_P, _P, _P] + [ctypes.c_int] * 4 + [_P],
+    "atray_probe_dot_shape": [ctypes.c_int, ctypes.c_int, _P],
     "atray_probe_dot_bf16": [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
     "atray_probe_route_loop": [_P] * 4 + [ctypes.c_int] * 2 + [_P],
     "atray_probe_route_dyn": [_P] * 5,

@@ -79,6 +79,22 @@ class Timed:
         return text
 
 
+def ptxas(entry: str) -> str:
+    """The ``-Xptxas -v`` stack frame and spills, and registers, of the first
+    kernel whose mangled name contains ``entry``, from this process's build
+    of the library."""
+    lines = _build._loaded.log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and entry in line:
+            frame = ""
+            for nxt in lines[i + 1:]:
+                if "stack frame" in nxt:
+                    frame = nxt.strip() + "; "
+                if "registers" in nxt:
+                    return frame + nxt.split(":", 1)[-1].strip()
+    return "not in this process's build log"
+
+
 def launch(fn_name: str, counter: str, device: torch.device, *args) -> None:
     """Call C launcher ``fn_name`` with ``args`` and the current stream of
     ``device``, count the launch, and raise if CUDA refused it."""

@@ -144,12 +144,15 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     kernels of ``scripts/probe_r18.py``-``probe_r22.py``): each kernel
     against its plain version (``check()`` of each probe module: the
     float32 products within rtol 1e-5, atol 1e-5 x reps at reps cut to 64
-    or 8, everything else equal; the route probes at the scripts' trip
-    counts, the takes at 2,073,600 lanes x 14 planes on the maps of every
-    occupancy and a scattered one); then, counted, each probe's table at
-    the script's shapes and reps, every line with its bound on the card and
-    (for the one-block kernels P1-P9) on one SM; then the plain version's
-    and the library call's time (``torch.matmul`` for P1-P5,
+    or 8, P4 and P5 also at reps 0 and 1 and on a dense normal b within
+    ``probe_r19.dense_tolerance``, everything else equal; the route probes
+    at the scripts' trip counts, the takes at 2,073,600 lanes x 14 planes on
+    the maps of every occupancy and a scattered one); then, counted, each
+    probe's table at the script's shapes and reps, every line with its bound
+    on the card and (for the one-block kernels P1-P9) on one SM, P4's and
+    P5's also with the time over the one-SM bound, the block's threads and
+    shared memory and ptxas's registers and spills; then the plain
+    version's and the library call's time (``torch.matmul`` for P1-P5,
     ``index_select`` for P10-P11) at one variant of each.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -1750,18 +1753,9 @@ def _ptxas(name: str, template: str = "") -> str:
     """The ``-Xptxas -v`` stack frame and spills, and registers, of
     ``<name>_kernel`` (the instance whose mangled template arguments begin
     with ``template``) in this process's build."""
-    from atray_tpu_torch.kernels import _build
+    from atray_tpu_torch.probes import _timing
 
-    lines = _build._loaded.log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry" in line and f"{name}_kernel{template}" in line:
-            frame = ""
-            for nxt in lines[i + 1:]:
-                if "stack frame" in nxt:
-                    frame = nxt.strip() + "; "
-                if "registers" in nxt:
-                    return frame + nxt.split(":", 1)[-1].strip()
-    return "not in this process's build log"
+    return _timing.ptxas(f"{name}_kernel{template}")
 
 
 def _lineage_ops(kind: str, v) -> float:
@@ -2112,8 +2106,12 @@ def phase_probes(dev, gpu):
         res[name].update(plain_ms=plain_ms, library_ms=lib_ms)
         t = res[name]["t"]
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        shape = ""
+        if name in ("probe_dot_k", "probe_dot_indep"):
+            shape = (f", {probe_r19.over_one_sm(t):.3f}x the one-SM bound, "
+                     f"{probe_r19.resources(14, 2 if name == 'probe_dot_k' else 3)}")
         say(f"{name} {t.label}: kernel {t.ms:.4f} ms, {t.bound_text()}, plain {plain_ms:.4f} ms, "
-            f"library {lib}, {res[name]['launches']} launches in the probes' run")
+            f"library {lib}, {res[name]['launches']} launches in the probes' run{shape}")
     print(f"phase 14 probes: checks {t_check:.1f} s, tables {t_table:.1f} s, all "
           f"{time.perf_counter() - t_phase:.1f} s")
     return res

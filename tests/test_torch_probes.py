@@ -224,6 +224,56 @@ def test_plain_version_matches_tpu_probe_kernel(row):
     CASES[row](np.random.default_rng(int(row[1:])))
 
 
+@pytest.mark.parametrize("reps", [0, 1])
+@pytest.mark.parametrize("row", ["P4", "P5"])
+def test_stream_products_match_tpu_kernels_at_reps_0_and_1(row, reps):
+    # no rep gives zeros and one rep one product: where a split-K share or a
+    # ring stage that is dropped, repeated or read early shows plainly
+    rng = np.random.default_rng(40 + reps)
+    shapes = ((14, 128), (16, 512), (14, 4096)) if row == "P4" else ((14, 512), (16, 512))
+    for m, k in shapes:
+        a = rng.normal(size=(m, k)).astype(np.float32)
+        b = (rng.random((k, 128)) < (1.0 / k if row == "P4" else 0.02)).astype(np.float32)
+        if row == "P4":
+            ref, got = _dot_case("probe_r19", "_kern_k", a, b, reps, probe_r19.dot_k)
+        else:
+            ref, got = _dot_case("probe_r19", "_kern_indep", a, b, reps, probe_r19.dot_indep)
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * max(reps, 1))
+        assert (np.abs(ref).max() > 0) == (reps > 0)
+
+
+def test_dot_k_dense_b_matches_tpu_kernel_within_the_stated_tolerance():
+    # b normal: every term counts, and the plain version and the TPU kernel
+    # sum in other orders; probe_r19.dense_tolerance bounds the difference
+    rng = np.random.default_rng(45)
+    a = rng.normal(size=(16, 1024)).astype(np.float32)
+    b = rng.normal(size=(1024, 128)).astype(np.float32)
+    for reps in (1, 3):
+        ref, got = _dot_case("probe_r19", "_kern_k", a, b, reps, probe_r19.dot_k)
+        tol = probe_r19.dense_tolerance(_t(a), _t(b), reps).numpy()
+        assert (np.abs(got - ref) <= tol).all(), reps
+        assert np.abs(got - ref).max() > 0          # the orders do differ
+
+
+def test_dense_tolerance_catches_one_dropped_share():
+    # the card check's dense cases must fail a kernel that loses one warp's
+    # 16-deep share of one slice (P4 at K = 4096, the widest) or of every slice
+    rng = np.random.default_rng(46)
+    a, b = probe_r19.dense_inputs("cpu", 16, 4096, rng)
+    want = probe_r19.dot_k_ref(a, b, 8)
+    tol = probe_r19.dense_tolerance(a, b, 8)
+    one = b.clone()
+    one[3 * 128 + 48:3 * 128 + 64] = 0.0            # warp 3's share of slice 3
+    every = b.clone().view(32, 128, 128)
+    every[:, 48:64] = 0.0                           # its share of every slice
+    for cut in (one, every.view(4096, 128)):
+        got = probe_r19.dot_k_ref(a, cut, 8)
+        assert bool(((got - want).abs() > tol).any())
+        with pytest.raises(AssertionError):
+            probe_r19.dense_err(got, want, a, b, 8, "dropped share")
+    assert probe_r19.dense_err(want, want, a, b, 8, "same")[0] == 0.0
+
+
 def test_cpu_wrappers_count_plain_calls_only():
     rng = np.random.default_rng(3)
     a = _t(rng.normal(size=(14, 512)).astype(np.float32))
