@@ -10,29 +10,52 @@
 // Each TPU kernel runs on one core with no grid, so each port runs one block:
 // the question is one core's cost, and the answer here is one SM's.
 //
-// P1-P3 layout: out is (M, 128); thread n of 128 owns column n and holds the
-// M sums in registers. Each rep re-reads the operands from shared memory (an
-// empty asm with a memory clobber keeps the compiler from hoisting the
-// loop-invariant product out of the rep loop), forms the product p = a . b
-// from zero and adds it to the sum, as the TPU kernel adds dot(a, b) to its
-// carry.
+// f32 (P1, P2, P4, P5) is full float32 FFMA (fmaf, built with --fmad=false),
+// never TF32; one SM's float32 rate bounds it (67 TFLOP/s / 132 SMs: 0.904 us
+// a (14, 128) x (128, 128) product). The rep loop is outermost: every rep
+// forms the product from the operands in shared memory and adds it to a
+// float32 sum, as the TPU kernel's fori_loop adds dot(a, b) to its carry.
 //
-// f32 (P1, P2, P4, P5) is full float32 FFMA, never TF32. P1 and P2 differ
-// only in where b is read: P2 reads row k of the staged b (neighbouring
-// threads on neighbouring words), P1 reads row n of the staged b at column k,
-// with the row stride padded to 129 words so that a warp's 32 rows fall on
-// 32 banks. P3 runs on the tensor cores, mma.sync m16n8k16 bf16 -> f32, the
-// M=14 case padded to 16 rows with zero registers (the inputs stay 14 rows).
+// P1 and P2 (probe_dot_resident_kernel): a (M, 128) and b (128, 128) sit in
+// shared memory for all reps, beside the warps' carries (130,048 B in all
+// at M=14, 139,264 at M=16).
+// - 256 threads: eight warps split the contraction, warp w taking rows
+//   [16 w, 16 w + 16) of it; a lane holds a register tile of all M rows x 4
+//   adjacent columns (col = 4 lane). Per 4-deep step a lane makes four
+//   16-byte loads of b and one broadcast 16-byte load of a's row i for each
+//   i: 18 shared loads feed 4 M x 4 FFMA, two warps a scheduler.
+// - P2 reads b's row k at col (a warp reads the whole 512-byte row, and no
+//   other warp reads it). P1 reads b as stored, (n, k), along its rows: a lane
+//   needs b[col + j, k .. k + 3], four 16-byte loads. b is staged at a row
+//   stride of 128 words with row n's 16-byte chunk c at chunk c ^ ((n >> 2) &
+//   7), so a quarter warp's eight loads (rows 4 l + j at one chunk) fall on
+//   32 distinct banks; each row stays a row.
+// - A rep: __syncwarp, a memory barrier among the warp's lanes that ptxas
+//   does not move the rep's shared loads across (the empty asm with a memory
+//   clobber binds only the front end: with it alone ptxas hoisted the
+//   unrolled product out of the rep loop), then the warp's 16-deep share,
+//   unrolled, its first step multiplies in place of FFMA with zero.
+// - Order: a warp sums each run of 16 reps' partial products in registers,
+//   then adds the run to its carry, which lies in shared memory. One carry a
+//   warp for every rep fails the check: a share's partial can exceed the
+//   whole product where the shares cancel, and 64 reps of it in one float32
+//   sum reached 1.3-2.3x the tolerance (rtol 1e-5, atol 1e-5 x reps) on the
+//   script's normal inputs. After the last rep the eight carries are summed
+//   in a fixed order, warp 0 first. The carries in shared memory leave the
+//   registers to the tile and the run (186 at M=14 for P2, none spilled).
+// PERF.md (the P1/P2 ladder) has the other shapes: 4, 12 or 16 warps, 2
+// columns a lane, unroll 1 or 2, zeroing, the run's length, carries in
+// registers, b^T staged once, no swizzle, and the FFMA loop alone.
+//
+// P3 runs on the tensor cores, mma.sync m16n8k16 bf16 -> f32, the M=14 case
+// padded to 16 rows with zero registers (the inputs stay 14 rows); thread n
+// of 128 owns column n, b^T staged at a padded stride.
 //
 // P4 and P5 (probe_dot_stream_kernel): at K=4096 b alone is 2 MiB, far above
 // the 227 KB a block can have, so a and b pass through shared memory in
 // 128-deep slices on every rep (72,704 B a slice at M=14, 73,728 at M=16).
-// - Eight consumer warps split every slice over K: warp w takes rows
-//   [16 w, 16 w + 16) of it. A lane holds a register tile of all M rows x 4
-//   adjacent columns (col = 4 lane): per k one 16-byte load of b's row k (a
-//   warp reads the whole 512-byte row, conflict-free, and no other warp reads
-//   it) and per four k one broadcast 16-byte load of a's row i, so 18 shared
-//   loads feed 4 M x 4 FFMA; two warps a scheduler.
+// - Eight consumer warps split every slice over K as P1-P2's warps do, with
+//   the same M x 4 tile.
 // - A ninth warp produces into a ring of three one-slice stages. Each stage
 //   has a full mbarrier (a's M rows as 16-byte cp.async pieces over the
 //   warp's lanes, then expect-tx and one bulk copy of b's slice) and an
@@ -48,13 +71,13 @@
 //   the warps in four groups of two, group j taking slice j (32 rows a warp),
 //   so group j's carries sum to acc_j and out = ((acc_0 + acc_1) + acc_2) +
 //   acc_3, the plain version's order.
+// - P4 and P5 also need 72.7 KB of L2-to-SM stream a slice: this ring alone,
+//   with no FFMA, moves a slice in 0.39 us (186 GB/s into one SM; a bulk copy
+//   for each of a's rows instead took 0.71 us), against about 0.9 us of FFMA
+//   at the one-SM bound (PERF.md, the P4/P5 ladder).
 //
-// What bounds it: float32 (P3: bf16 tensor) operations of one SM; the card
-// bound over 132 SMs is reported beside the one-SM bound. P4 and P5 also need
-// 72.7 KB of L2-to-SM stream a slice: this ring alone, with no FFMA, moves a
-// slice in 0.39 us (186 GB/s into one SM; a bulk copy for each of a's rows
-// instead took 0.71 us), against about 0.9 us of FFMA at the one-SM bound
-// (PERF.md, the P4/P5 ladder).
+// P3's bound is the bf16 tensor rate of one SM; the card bound over 132 SMs
+// is reported beside each one-SM bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,58 +89,130 @@ namespace {
 
 constexpr int kN = 128;        // output columns
 constexpr int kS = 128;        // contraction slice
-constexpr int kThreads = 128;  // one thread per output column
-constexpr int kPad = kS + 1;   // P1's staged row stride (bank-conflict free)
+constexpr int kThreads = 128;  // P3: one thread per output column
 
 enum Variant { kNormal = 0, kTransposed = 1, kStreamK = 2, kIndep = 3 };
 
-// p[i] += a[i, k] * b(k, n) over one 128-deep slice; a_s is (M, 128).
-template <int M, bool TRANS>
-__device__ __forceinline__ void slice_product(const float* __restrict__ a_s,
-                                              const float* __restrict__ b_s, int n,
-                                              float (&p)[M]) {
-#pragma unroll 2
-    for (int k = 0; k < kS; k += 4) {
-        float bk[4];
+// P1's stage of b (n, k): row n at a stride of 128 words, its 16-byte chunk
+// c at chunk c ^ ((n >> 2) & 7). Returns the word of b[n, k].
+__host__ __device__ __forceinline__ int swizzled(int n, int k) {
+    return n * kN + 4 * ((k >> 2) ^ ((n >> 2) & 7)) + (k & 3);
+}
+
+// One 4-deep step at k of p[i][j] += a[i, k + q] b(k + q, col + j), a_s with
+// row stride 128. b(k, n) is b_s[k * 128 + n]; with ROWS (P1) it is b[n, k]
+// of P1's stage, b_s pointing at row col and key = (col >> 2) & 7. FIRST:
+// the step's products start p (no add to zero).
+template <int M, bool ROWS, bool FIRST>
+__device__ __forceinline__ void step_product(const float* __restrict__ a_s,
+                                             const float* __restrict__ b_s, int k, int col,
+                                             int key, float (&p)[M][4]) {
+    float bq[4][4];                                 // b(k + q, col + j)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) bk[q] = TRANS ? b_s[n * kPad + k + q] : b_s[(k + q) * kN + n];
+    for (int q = 0; q < 4; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            ROWS ? b_s + q * kN + 4 * ((k >> 2) ^ key) : b_s + (k + q) * kN + col);
+        const float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-        for (int i = 0; i < M; ++i) {
-            const float4 av = *reinterpret_cast<const float4*>(a_s + i * kS + k);
-            p[i] = fmaf(av.x, bk[0], p[i]);
-            p[i] = fmaf(av.y, bk[1], p[i]);
-            p[i] = fmaf(av.z, bk[2], p[i]);
-            p[i] = fmaf(av.w, bk[3], p[i]);
+        for (int j = 0; j < 4; ++j) {
+            if (ROWS) {
+                bq[j][q] = e[j];                    // row col + q is column col + q
+            } else {
+                bq[q][j] = e[j];
+            }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+        const float4 av = *reinterpret_cast<const float4*>(a_s + i * kS + k);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            p[i][j] = FIRST ? __fmul_rn(av.x, bq[0][j]) : fmaf(av.x, bq[0][j], p[i][j]);
+            p[i][j] = fmaf(av.y, bq[1][j], p[i][j]);
+            p[i][j] = fmaf(av.z, bq[2][j], p[i][j]);
+            p[i][j] = fmaf(av.w, bq[3][j], p[i][j]);
         }
     }
 }
 
+// p[i][j] += a[i, k] b(k, col + j) over the E-deep share [k0, k0 + E) of a_s
+// (row stride 128) and b_s as step_product reads them, U steps unrolled.
+// FIRST: the share's products start p.
+template <int M, int E, bool ROWS = false, bool FIRST = false, int U = 1>
+__device__ __forceinline__ void share_product(const float* __restrict__ a_s,
+                                              const float* __restrict__ b_s, int col,
+                                              float (&p)[M][4], int k0 = 0, int key = 0) {
+    int k = k0;
+    if (FIRST) {
+        step_product<M, ROWS, true>(a_s, b_s, k, col, key, p);
+        k += 4;
+    }
+#pragma unroll U
+    for (; k < k0 + E; k += 4) step_product<M, ROWS, false>(a_s, b_s, k, col, key, p);
+}
+
 // P1 (TRANS) and P2: a (M, 128) and b (128, 128) resident in shared memory.
+constexpr int kResWarps = 8;
+constexpr int kResThreads = 32 * kResWarps;
+constexpr int kResShare = kS / kResWarps;          // rows of the contraction a warp
+constexpr int kRun = 16;                           // reps a run sums before the carry
+
+// Dynamic shared memory of P1 and P2: a, b, then the warps' carries.
+template <int M>
+__host__ __device__ constexpr int resident_smem() {
+    return (M * kS + kS * kN + kResWarps * M * kN) * 4;
+}
+
 template <int M, bool TRANS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kResThreads, 1)
     probe_dot_resident_kernel(const float* __restrict__ a, const float* __restrict__ b,
                               float* __restrict__ out, int reps) {
     extern __shared__ __align__(16) float res_smem[];
-    float* a_s = res_smem;
-    float* b_s = res_smem + M * kS;
-    const int n = threadIdx.x;
-    for (int i = n; i < M * kS; i += kThreads) a_s[i] = a[i];
-    for (int i = n; i < kS * kN; i += kThreads) b_s[TRANS ? (i / kS) * kPad + i % kS : i] = b[i];
+    float* a_s = res_smem;                         // (M, 128)
+    float* b_s = a_s + M * kS;                     // (128, 128), P1's rows swizzled
+    float* carries = b_s + kS * kN;                // (kResWarps, M, 128), warp order
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, col = 4 * lane;
+    for (int i = tid; i < M * kS; i += kResThreads) a_s[i] = a[i];
+    for (int i = tid; i < kS * kN; i += kResThreads)
+        b_s[TRANS ? swizzled(i / kS, i % kS) : i] = b[i];
+    float* carry = carries + w * M * kN + col;     // this lane's tile, row stride 128
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+        *reinterpret_cast<float4*>(carry + i * kN) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     __syncthreads();
-    float acc[M];
+    const float* b_w = TRANS ? b_s + col * kN : b_s;  // P1: this lane's first row
+    for (int r0 = 0; r0 < reps; r0 += kRun) {
+        const int r1 = min(r0 + kRun, reps);
+        float run[M][4];
 #pragma unroll
-    for (int i = 0; i < M; ++i) acc[i] = 0.0f;
-    for (int r = 0; r < reps; ++r) {
-        asm volatile("" ::: "memory");
-        float p[M];
+        for (int i = 0; i < M; ++i)
 #pragma unroll
-        for (int i = 0; i < M; ++i) p[i] = 0.0f;
-        slice_product<M, TRANS>(a_s, b_s, n, p);
+            for (int j = 0; j < 4; ++j) run[i][j] = 0.0f;
+        for (int r = r0; r < r1; ++r) {
+            asm volatile("" ::: "memory");
+            __syncwarp();
+            float p[M][4];
+            share_product<M, kResShare, TRANS, true, kResShare / 4>(a_s, b_w, col, p,
+                                                                  w * kResShare, lane & 7);
 #pragma unroll
-        for (int i = 0; i < M; ++i) acc[i] = __fadd_rn(acc[i], p[i]);
+            for (int i = 0; i < M; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) run[i][j] = __fadd_rn(run[i][j], p[i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < M; ++i) {
+            float4 c = *reinterpret_cast<float4*>(carry + i * kN);
+            c = make_float4(__fadd_rn(c.x, run[i][0]), __fadd_rn(c.y, run[i][1]),
+                            __fadd_rn(c.z, run[i][2]), __fadd_rn(c.w, run[i][3]));
+            *reinterpret_cast<float4*>(carry + i * kN) = c;
+        }
     }
-#pragma unroll
-    for (int i = 0; i < M; ++i) out[i * kN + n] = acc[i];
+    __syncthreads();
+    for (int e = tid; e < M * kN; e += kResThreads) {
+        float o = carries[e];
+        for (int q = 1; q < kResWarps; ++q) o = __fadd_rn(o, carries[q * M * kN + e]);
+        out[e] = o;
+    }
 }
 
 // P4 and P5: consumer warps, the producer warp, and the ring's stages.
@@ -136,35 +231,6 @@ __host__ __device__ constexpr int stage_floats() {
 template <int M>
 __host__ __device__ constexpr int stream_smem() {
     return kStages * stage_floats<M>() * 4 + 2 * kStages * 8;
-}
-
-// p[i][j] += a[i, k] b[k, col + j] over the E-deep share at a_s (row stride
-// 128) and b_s.
-template <int M, int E>
-__device__ __forceinline__ void share_product(const float* __restrict__ a_s,
-                                              const float* __restrict__ b_s, int col,
-                                              float (&p)[M][4]) {
-#pragma unroll 1
-    for (int k = 0; k < E; k += 4) {
-        float4 bv[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) bv[q] = *reinterpret_cast<const float4*>(b_s + (k + q) * kN + col);
-#pragma unroll
-        for (int i = 0; i < M; ++i) {
-            const float4 av = *reinterpret_cast<const float4*>(a_s + i * kS + k);
-            const float bq[4][4] = {{bv[0].x, bv[0].y, bv[0].z, bv[0].w},
-                                    {bv[1].x, bv[1].y, bv[1].z, bv[1].w},
-                                    {bv[2].x, bv[2].y, bv[2].z, bv[2].w},
-                                    {bv[3].x, bv[3].y, bv[3].z, bv[3].w}};
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                p[i][j] = fmaf(av.x, bq[0][j], p[i][j]);
-                p[i][j] = fmaf(av.y, bq[1][j], p[i][j]);
-                p[i][j] = fmaf(av.z, bq[2][j], p[i][j]);
-                p[i][j] = fmaf(av.w, bq[3][j], p[i][j]);
-            }
-        }
-    }
 }
 
 // The producer warp's lanes: slice s of a (M, K) and b (K, 128) into a
@@ -376,15 +442,13 @@ __global__ void __launch_bounds__(kThreads)
 template <int M>
 int launch_f32(const float* a, const float* b, float* out, int k, int reps, int variant,
                cudaStream_t stream) {
-    const int resident = (M * kS + kS * kN) * 4;
-    const int transposed = (M * kS + kS * kPad) * 4;
     switch (variant) {
         case kNormal:
-            return launch_block(probe_dot_resident_kernel<M, false>, kThreads, resident, stream, a,
-                                b, out, reps);
+            return launch_block(probe_dot_resident_kernel<M, false>, kResThreads,
+                                resident_smem<M>(), stream, a, b, out, reps);
         case kTransposed:
-            return launch_block(probe_dot_resident_kernel<M, true>, kThreads, transposed, stream, a,
-                                b, out, reps);
+            return launch_block(probe_dot_resident_kernel<M, true>, kResThreads,
+                                resident_smem<M>(), stream, a, b, out, reps);
         case kStreamK:
             if (k / kS > kStages)
                 return launch_block(probe_dot_stream_kernel<M, 1, true>, kStreamThreads,
@@ -423,17 +487,17 @@ extern "C" int atray_probe_dot(const float* a, const float* b, float* out, int m
     return (int)cudaErrorInvalidValue;
 }
 
-// The launch shape of a variant at m rows: threads a block, dynamic shared
-// memory in bytes and (P4, P5) the ring's stages, into shape[0..2].
+// The launch shape of a variant (0-3) at m rows: threads a block, dynamic
+// shared memory in bytes and (P4, P5) the ring's stages, into shape[0..2].
 extern "C" int atray_probe_dot_shape(int m, int variant, int* shape) {
     if (m != 14 && m != 16) return (int)cudaErrorInvalidValue;
     const bool stream = variant == kStreamK || variant == kIndep;
-    shape[0] = stream ? kStreamThreads : kThreads;
+    shape[0] = stream ? kStreamThreads : kResThreads;
     shape[2] = stream ? kStages : 0;
     if (stream) {
         shape[1] = m == 14 ? stream_smem<14>() : stream_smem<16>();
     } else {
-        shape[1] = (m * kS + kS * (variant == kTransposed ? kPad : kN)) * 4;
+        shape[1] = m == 14 ? resident_smem<14>() : resident_smem<16>();
     }
     return 0;
 }

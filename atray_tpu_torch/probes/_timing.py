@@ -79,6 +79,11 @@ class Timed:
         return text
 
 
+def over_one_sm(t: Timed) -> float:
+    """A one-block measurement's time over its one-SM bound."""
+    return t.ms / (t.bound_ms * SMS)
+
+
 def ptxas(entry: str) -> str:
     """The ``-Xptxas -v`` stack frame and spills, and registers, of the first
     kernel whose mangled name contains ``entry``, from this process's build

@@ -8,13 +8,27 @@
   cores, the sum in float32.
 
 Each launches one block of ``csrc/probe_dot.cu`` on a CUDA tensor and runs
-its plain version (``dot_ref``) on a CPU tensor. ``python -m
+its plain version (``dot_ref``) on a CPU tensor. P1 and P2 share one kernel
+(``probe_dot_resident_kernel``): 256 threads, eight warps splitting the
+128-deep contraction 16 rows a warp, a lane holding all M rows x 4 adjacent
+columns; P2 reads b's rows k, P1 reads b as stored, along its rows, from a
+stage whose 16-byte chunks are permuted within each row so that a quarter
+warp's eight row loads fall on distinct banks. The rep loop is outermost,
+each rep forms the product from shared memory in full float32 FFMA, a warp
+sums runs of 16 reps' partials before adding them to its carry in shared
+memory (one carry a warp for every rep failed the check on these normal
+inputs), and the carries meet in warp order at the end. One SM's float32
+rate bounds it (``bound_ms * 132``); ``PERF.md``'s P1/P2 ladder has the
+other shapes measured. ``python -m
 atray_tpu_torch.probes.probe_r18`` prints the script's table on the card:
-ns per product of P2 and P1, and of P3 at M = 14 and 56.
+ns per product of P2 and P1 at M = 14 and 16, each line with the block's
+threads, shared memory, registers and its time over the one-SM bound, and
+of P3 at M = 14 and 56.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, List
 
 import numpy as np
@@ -127,7 +141,11 @@ def timed(kernel: str, label: str, fn: Callable[[int], object], work, reps: int,
     fn(min(reps, 2))
     ms = _timing.events_ms(lambda: fn(reps), warm=False)
     b_ms, by = _timing.bound(work[0], work[1], ops_per_s)
-    return _timing.Timed(kernel, label, ms, b_ms, by, one_block=True)
+    t = _timing.Timed(kernel, label, ms, b_ms, by, one_block=True)
+    if _timing.over_one_sm(t) < 1.0:
+        raise AssertionError(f"{kernel} {label}: {ms:.4f} ms is under its one-SM bound; the "
+                             f"compiler must have moved work out of the rep loop")
+    return t
 
 
 def sum_err(got: torch.Tensor, want: torch.Tensor, reps: int, what: str) -> float:
@@ -140,35 +158,72 @@ def sum_err(got: torch.Tensor, want: torch.Tensor, reps: int, what: str) -> floa
 
 
 def check(dev: torch.device, reps: int = 64, out=print) -> dict:
-    """Each kernel against its plain version on the script's inputs, reps
-    cut to ``reps``: P1 and P2 within rtol 1e-5, atol 1e-5 * reps, P3 (0/1
-    operands) equal. Returns the max |diff| of each kernel."""
-    a, b = inputs(dev)
-    want_t = dot_ref(a, b, reps, "probe_dot_t", transpose=True)
-    errs = {"probe_dot_t": sum_err(dot_t(a, b, reps), want_t, reps, "P1"),
-            "probe_dot_n": sum_err(dot_n(a, b, reps), dot_ref(a, b, reps), reps, "P2")}
+    """Each kernel against its plain version on the script's inputs: P1 and
+    P2 at M = 14 and 16 and reps 0, 1 and ``reps``, within rtol 1e-5, atol
+    1e-5 * reps; P3 (0/1 operands) equal at ``reps``. Returns the max |diff|
+    of each kernel."""
+    errs = {"probe_dot_t": 0.0, "probe_dot_n": 0.0}
+    cases = (0, 1, reps)
+    for m in F32_ROWS:
+        a, b = inputs(dev, m=m)
+        for r in cases:
+            for name, what, fn, trans in (("probe_dot_t", "P1", dot_t, True),
+                                          ("probe_dot_n", "P2", dot_n, False)):
+                want = dot_ref(a, b, r, name, transpose=trans)
+                err = sum_err(fn(a, b, r), want, r, f"{what} M={m} reps={r}")
+                errs[name] = max(errs[name], err)
     rng = np.random.default_rng(1)
     for m in BF16_ROWS:
         ha, hb = bf16_inputs(dev, m, rng)
         if not torch.equal(dot_bf16(ha, hb, reps), dot_ref(ha, hb, reps, "probe_dot_bf16")):
             raise AssertionError(f"P3 M={m}: kernel != plain version")
     errs["probe_dot_bf16"] = 0.0
-    out(f"probe_r18 check ({reps} reps): P1 max |diff| {errs['probe_dot_t']:.3g}, P2 "
-        f"{errs['probe_dot_n']:.3g} (rtol 1e-5, atol 1e-5 x reps), P3 M={BF16_ROWS} equal")
+    out(f"probe_r18 check (P1, P2 at M={F32_ROWS}, reps {cases}): P1 max |diff| "
+        f"{errs['probe_dot_t']:.3g}, P2 {errs['probe_dot_n']:.3g} (rtol 1e-5, atol 1e-5 x reps), "
+        f"P3 M={BF16_ROWS} equal ({reps} reps)")
     return errs
 
 
+def launch_shape(m: int, variant: int) -> tuple:
+    """(threads, dynamic shared memory bytes, ring stages) of a block of
+    ``atray_probe_dot`` variant ``variant`` (0: P2, 1: P1, 2: P4, 3: P5) at
+    ``m`` rows."""
+    shape = (ctypes.c_int * 3)()
+    _build.check(_build.load().atray_probe_dot_shape(m, variant, shape), "atray_probe_dot_shape")
+    return shape[0], shape[1], shape[2]
+
+
+def resources(m: int, variant: int, k: int = K) -> str:
+    """The block's threads and shared memory, and ptxas's registers and
+    spills, of ``atray_probe_dot`` variant ``variant`` at ``m`` rows and
+    contraction ``k``: P2 (0) and P1 (1) one resident kernel each; P4 (2)
+    and P5 (3) the stream kernel's instance for a ring refilled, or filled
+    once where the slices fit the stages."""
+    threads, smem, stages = launch_shape(m, variant)
+    if variant in (0, 1):
+        entry, what = f"probe_dot_resident_kernelILi{m}ELb{variant}EE", "operands resident"
+    else:
+        ring = k // K > stages
+        entry = f"probe_dot_stream_kernelILi{m}ELi{1 if variant == 2 else 4}ELb{int(ring)}EE"
+        what = "ring refilled" if ring else "ring filled once"
+    return f"{threads} threads, {smem} B shared memory, {what}, ptxas {_timing.ptxas(entry)}"
+
+
 def table(dev: torch.device, reps: int = REPS, out=print) -> List[_timing.Timed]:
-    """The script's measurements on the card: ns per product of P2, P1 and
-    P3 (M = 14, 56), each with its bound. Returns the timed variants."""
-    a, b = inputs(dev)
+    """The script's measurements on the card: ns per product of P2 and P1 at
+    M = 14 and 16 and of P3 (M = 14, 56), each with its bound. Returns the
+    timed variants."""
     res = []
-    for kernel, name, fn in (("probe_dot_n", "normal  (a . b)  ", dot_n),
-                             ("probe_dot_t", "rhs-T   (a . b^T)", dot_t)):
-        t = timed(kernel, "M=14", lambda r, fn=fn: fn(a, b, r), product_work(14, K, reps), reps)
-        out(f"probe_r18 {name}: {t.ms * 1e6 / reps:8.1f} ns/dot ({t.ms:.4f} ms for {reps} reps; "
-            f"{t.bound_text()})")
-        res.append(t)
+    for m in F32_ROWS:
+        a, b = inputs(dev, m=m)
+        for kernel, name, fn, variant in (("probe_dot_n", "normal  (a . b)  ", dot_n, 0),
+                                          ("probe_dot_t", "rhs-T   (a . b^T)", dot_t, 1)):
+            t = timed(kernel, f"M={m}", lambda r, fn=fn: fn(a, b, r), product_work(m, K, reps),
+                      reps)
+            out(f"probe_r18 {name} M={m}: {t.ms * 1e6 / reps:8.1f} ns/dot ({t.ms:.4f} ms for "
+                f"{reps} reps; {t.bound_text()}; {_timing.over_one_sm(t):.3f}x the one-SM bound; "
+                f"{resources(m, variant)})")
+            res.append(t)
     rng = np.random.default_rng(1)
     for m in BF16_ROWS:
         ha, hb = bf16_inputs(dev, m, rng)

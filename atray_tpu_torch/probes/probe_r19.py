@@ -27,7 +27,6 @@ memory, registers and its time over the one-SM bound.
 
 from __future__ import annotations
 
-import ctypes
 from typing import List
 
 import numpy as np
@@ -36,7 +35,7 @@ import torch
 from atray_tpu_torch.kernels import _build
 from atray_tpu_torch.probes import _timing
 from atray_tpu_torch.probes.probe_r18 import (
-    F32_ROWS, N, dot_f32, dot_ref, product_ref, product_work, sum_err, timed)
+    F32_ROWS, N, dot_f32, dot_ref, product_ref, product_work, resources, sum_err, timed)
 
 REPS = 20_000
 SLICE = 128
@@ -166,33 +165,8 @@ def check(dev: torch.device, reps: int = 8, out=print) -> dict:
                 err_i = max(err_i, e)
     out(f"probe_r19 check (reps {cases}): P4 max |diff| {err_k:.3g} over M={F32_ROWS} and "
         f"K={WIDTHS}, P5 {err_i:.3g} (b 0/1: rtol 1e-5, atol 1e-5 x reps; dense b at "
-        f"{ratio:.3g} of its tolerance); {resources(14, 2)}")
+        f"{ratio:.3g} of its tolerance); {resources(14, 2, INDEP_K)}")
     return {"probe_dot_k": err_k, "probe_dot_indep": err_i}
-
-
-def launch_shape(m: int, variant: int) -> tuple:
-    """(threads, dynamic shared memory bytes, ring stages) of a block of
-    ``atray_probe_dot`` variant ``variant`` (2: P4, 3: P5) at ``m`` rows."""
-    shape = (ctypes.c_int * 3)()
-    _build.check(_build.load().atray_probe_dot_shape(m, variant, shape), "atray_probe_dot_shape")
-    return shape[0], shape[1], shape[2]
-
-
-def resources(m: int, variant: int, k: int = INDEP_K) -> str:
-    """The block's threads and shared memory, and ptxas's registers and
-    spills, of P4 (variant 2) or P5 (3) at ``m`` rows and contraction ``k``
-    (the kernel's instance for a ring refilled, or filled once where the
-    slices fit the stages)."""
-    threads, smem, stages = launch_shape(m, variant)
-    ring = k // SLICE > stages
-    entry = f"probe_dot_stream_kernelILi{m}ELi{1 if variant == 2 else 4}ELb{int(ring)}EE"
-    return (f"{threads} threads, {smem} B shared memory, "
-            f"{'ring refilled' if ring else 'ring filled once'}, ptxas {_timing.ptxas(entry)}")
-
-
-def over_one_sm(t: _timing.Timed) -> float:
-    """A one-block measurement's time over its one-SM bound."""
-    return t.ms / (t.bound_ms * _timing.SMS)
 
 
 def table(dev: torch.device, reps: int = REPS, out=print) -> List[_timing.Timed]:
@@ -208,7 +182,7 @@ def table(dev: torch.device, reps: int = REPS, out=print) -> List[_timing.Timed]
                       product_work(m, k, reps), reps)
             out(f"probe_r19 f32 M={m:2d} K={k:5d}: {t.ms * 1e6 / reps:9.1f} ns/dot "
                 f"({t.ms * 1e6 / reps / (k // SLICE):7.1f} ns per 128-slice; {t.bound_text()}; "
-                f"{over_one_sm(t):.3f}x the one-SM bound; {resources(m, 2, k)})")
+                f"{_timing.over_one_sm(t):.3f}x the one-SM bound; {resources(m, 2, k)})")
             res.append(t)
     m = 14
     a, b = inputs(dev, m, INDEP_K, rng, 0.002)
@@ -216,7 +190,7 @@ def table(dev: torch.device, reps: int = REPS, out=print) -> List[_timing.Timed]
               product_work(m, SLICE, reps, products=4), reps)
     out(f"probe_r19 f32 M={m} 4 indep 128-dots: {t.ms * 1e6 / reps:9.1f} ns/iter "
         f"({t.ms * 1e6 / reps / 4:7.1f} ns per dot; {t.bound_text()}; "
-        f"{over_one_sm(t):.3f}x the one-SM bound; {resources(m, 3, INDEP_K)})")
+        f"{_timing.over_one_sm(t):.3f}x the one-SM bound; {resources(m, 3, INDEP_K)})")
     res.append(t)
     return res
 

@@ -143,17 +143,19 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
 14. the lane-routing probes (``atray_tpu_torch/probes``, P1-P11, the TPU
     kernels of ``scripts/probe_r18.py``-``probe_r22.py``): each kernel
     against its plain version (``check()`` of each probe module: the
-    float32 products within rtol 1e-5, atol 1e-5 x reps at reps cut to 64
-    or 8, P4 and P5 also at reps 0 and 1 and on a dense normal b within
-    ``probe_r19.dense_tolerance``, everything else equal; the route probes
+    float32 products within rtol 1e-5, atol 1e-5 x reps at reps 0, 1 and
+    64 (P1, P2 at M = 14 and 16) or 8 (P4, P5, also on a dense normal b
+    within ``probe_r19.dense_tolerance``), everything else equal; the route probes
     at the scripts' trip counts, the takes at 2,073,600 lanes x 14 planes on
     the maps of every occupancy and a scattered one); then, counted, each
     probe's table at the script's shapes and reps, every line with its bound
-    on the card and (for the one-block kernels P1-P9) on one SM, P4's and
-    P5's also with the time over the one-SM bound, the block's threads and
-    shared memory and ptxas's registers and spills; then the plain
-    version's and the library call's time (``torch.matmul`` for P1-P5,
-    ``index_select`` for P10-P11) at one variant of each.
+    on the card and (for the one-block kernels P1-P9) on one SM, P1's, P2's,
+    P4's and P5's also with the time over the one-SM bound (a time under it
+    fails), the block's threads and shared memory and ptxas's registers and
+    spills; then the plain version's and the library call's time
+    (``torch.matmul`` for P1-P5, its first call apart and its kernels'
+    names and grids from the profiler; ``index_select`` for P10-P11) at one
+    variant of each.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every profile (phases 4, 8, 9, 11, 12) prints device time by kernel
@@ -2011,12 +2013,52 @@ PROBES = (
 )
 
 
+# the float32 one-block products: counter name -> (variant, K) of atray_probe_dot
+_F32_PRODUCTS = {"probe_dot_n": (0, 128), "probe_dot_t": (1, 128), "probe_dot_k": (2, 512),
+                 "probe_dot_indep": (3, 512)}
+
+
+def _library_kernels(fn):
+    """The device kernels of one call of ``fn`` from torch.profiler: name,
+    device microseconds and, where the exported trace records them, grid and
+    block."""
+    import json
+    import os
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [(e.key, float(getattr(e, "self_device_time_total", 0.0)))
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.key.startswith(("Memset", "Memcpy"))]
+    if not kern:
+        return "the profiler recorded no kernel (not measured)"
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    finally:
+        os.remove(path)
+    shape = {e["name"]: f"grid {e['args'].get('grid')} block {e['args'].get('block')}"
+             for e in events if e.get("cat") == "kernel"}
+    return "; ".join(f"{name[:120]} {us:.1f} us {shape.get(name, 'grid not in the trace')}"
+                     for name, us in kern)
+
+
 def _probe_plain_and_library(dev):
     """name -> (plain ms, library ms or None) at each entry's variant. The
     library call computes the same function in one call: the reps-fold sum
     of products as one product over the reps-fold contraction (a tiled
     along K, b along K), and the takes as one ``index_select`` with a zero
-    word appended, to which dead lanes point."""
+    word appended, to which dead lanes point. A product's library time is
+    the mean of three calls after a first one, timed apart."""
     import numpy as np
     import torch
 
@@ -2024,23 +2066,34 @@ def _probe_plain_and_library(dev):
         _timing, probe_r18, probe_r19, probe_r20, probe_r21, probe_r22)
 
     ms = lambda fn, reps=1: _timing.events_ms(fn, reps, warm=False)  # noqa: E731
+
+    def lib_ms(name, fn, reps=3):
+        # the first call of a library kernel in a process can also pay for
+        # setting it up: it is timed and printed apart, and library_ms is
+        # the mean of the calls after it
+        first = ms(fn)
+        warm = ms(fn, reps)
+        print(f"phase 14 {name} library call: first {first:.4f} ms, then {warm:.4f} ms a call; "
+              f"kernels {_library_kernels(fn)}")
+        return warm
+
     res = {}
     reps = probe_r18.REPS
     a, b = probe_r18.inputs(dev)
     wide_a, wide_bt, wide_b = a.repeat(1, reps), b.repeat(1, reps), b.repeat(reps, 1)
     res["probe_dot_t"] = (ms(lambda: probe_r18.dot_ref(a, b, reps, "probe_dot_t", True)),
-                          ms(lambda: torch.matmul(wide_a, wide_bt.t()), 3))
+                          lib_ms("probe_dot_t", lambda: torch.matmul(wide_a, wide_bt.t())))
     res["probe_dot_n"] = (ms(lambda: probe_r18.dot_ref(a, b, reps)),
-                          ms(lambda: torch.matmul(wide_a, wide_b), 3))
+                          lib_ms("probe_dot_n", lambda: torch.matmul(wide_a, wide_b)))
     del wide_a, wide_bt, wide_b
     ha, hb = probe_r18.bf16_inputs(dev, 14, np.random.default_rng(1))
     wide_a, wide_b = ha.repeat(1, reps), hb.repeat(reps, 1)
     res["probe_dot_bf16"] = (ms(lambda: probe_r18.dot_ref(ha, hb, reps, "probe_dot_bf16")),
-                             ms(lambda: torch.matmul(wide_a, wide_b), 3))
+                             lib_ms("probe_dot_bf16", lambda: torch.matmul(wide_a, wide_b)))
     del wide_a, wide_b
     a, b = probe_r19.inputs(dev, 14, probe_r19.INDEP_K, np.random.default_rng(0), 0.002)
     wide_a, wide_b = a.repeat(1, reps), b.repeat(reps, 1)
-    lib = ms(lambda: torch.matmul(wide_a, wide_b), 3)
+    lib = lib_ms("probe_dot_k, probe_dot_indep", lambda: torch.matmul(wide_a, wide_b))
     del wide_a, wide_b
     res["probe_dot_k"] = (ms(lambda: probe_r19.dot_k_ref(a, b, reps)), lib)
     res["probe_dot_indep"] = (ms(lambda: probe_r19.dot_indep_ref(a, b, reps)), lib)
@@ -2082,7 +2135,8 @@ def _probe_plain_and_library(dev):
 def phase_probes(dev, gpu):
     """Phase 14: the probe kernels against their plain versions, then each
     probe's table (the counted run), then plain and library times."""
-    from atray_tpu_torch.probes import probe_r18, probe_r19, probe_r20, probe_r21, probe_r22
+    from atray_tpu_torch.probes import (
+        _timing, probe_r18, probe_r19, probe_r20, probe_r21, probe_r22)
 
     t_phase = time.perf_counter()
     mods = (probe_r18, probe_r19, probe_r20, probe_r21, probe_r22)
@@ -2107,9 +2161,9 @@ def phase_probes(dev, gpu):
         t = res[name]["t"]
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         shape = ""
-        if name in ("probe_dot_k", "probe_dot_indep"):
-            shape = (f", {probe_r19.over_one_sm(t):.3f}x the one-SM bound, "
-                     f"{probe_r19.resources(14, 2 if name == 'probe_dot_k' else 3)}")
+        if name in _F32_PRODUCTS:
+            shape = (f", {_timing.over_one_sm(t):.3f}x the one-SM bound, "
+                     f"{probe_r18.resources(14, *_F32_PRODUCTS[name])}")
         say(f"{name} {t.label}: kernel {t.ms:.4f} ms, {t.bound_text()}, plain {plain_ms:.4f} ms, "
             f"library {lib}, {res[name]['launches']} launches in the probes' run{shape}")
     print(f"phase 14 probes: checks {t_check:.1f} s, tables {t_table:.1f} s, all "

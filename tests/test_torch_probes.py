@@ -225,11 +225,21 @@ def test_plain_version_matches_tpu_probe_kernel(row):
 
 
 @pytest.mark.parametrize("reps", [0, 1])
-@pytest.mark.parametrize("row", ["P4", "P5"])
+@pytest.mark.parametrize("row", ["P4", "P5", "P1", "P2"])
 def test_stream_products_match_tpu_kernels_at_reps_0_and_1(row, reps):
     # no rep gives zeros and one rep one product: where a split-K share or a
-    # ring stage that is dropped, repeated or read early shows plainly
+    # ring stage that is dropped, repeated or read early shows plainly (P1,
+    # P2: also a swizzled row of b's stage)
     rng = np.random.default_rng(40 + reps)
+    if row in ("P1", "P2"):
+        kern, fn = ("_kern_t", probe_r18.dot_t) if row == "P1" else ("_kern_n", probe_r18.dot_n)
+        for m in probe_r18.F32_ROWS:
+            a = rng.normal(size=(m, 128)).astype(np.float32)
+            b = rng.normal(size=(128, 128)).astype(np.float32)
+            ref, got = _dot_case("probe_r18", kern, a, b, reps, fn)
+            np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * max(reps, 1))
+            assert (np.abs(ref).max() > 0) == (reps > 0)
+        return
     shapes = ((14, 128), (16, 512), (14, 4096)) if row == "P4" else ((14, 512), (16, 512))
     for m, k in shapes:
         a = rng.normal(size=(m, k)).astype(np.float32)
@@ -272,6 +282,52 @@ def test_dense_tolerance_catches_one_dropped_share():
         with pytest.raises(AssertionError):
             probe_r19.dense_err(got, want, a, b, 8, "dropped share")
     assert probe_r19.dense_err(want, want, a, b, 8, "same")[0] == 0.0
+
+
+def _resident_order(a, b, reps, transpose):
+    """P1's or P2's sum in the card kernel's order, on the CPU: warp w's
+    rows [16 w, 16 w + 16) of the contraction as a chain of fused
+    multiply-adds (exact float64 products, sums rounded to float32), runs of
+    16 reps' partials added to the warp's carry, the carries summed warp 0
+    first."""
+    bk = (b.t() if transpose else b).double()          # (k, n)
+    carries = []
+    for w in range(8):
+        p = torch.zeros(a.shape[0], 128)
+        for k in range(16 * w, 16 * w + 16):
+            p = (a[:, k:k + 1].double() * bk[k] + p.double()).float()
+        carry = torch.zeros_like(p)
+        for r0 in range(0, reps, 16):
+            run = torch.zeros_like(p)
+            for _ in range(r0, min(r0 + 16, reps)):
+                run = run + p
+            carry = carry + run
+        carries.append(carry)
+    out = carries[0]
+    for carry in carries[1:]:
+        out = out + carry
+    return out
+
+
+@pytest.mark.parametrize("row", ["P1", "P2"])
+def test_p1_p2_check_catches_one_dropped_share(row):
+    # the card check (probe_r18.sum_err on the script's normal inputs, reps
+    # 64, M = 16) passes the kernel's summation order and fails a result
+    # that lost warp 3's 16-deep share: b's rows [48, 64) for P2, its
+    # columns [48, 64) for P1 (b is (n, k) there)
+    transpose = row == "P1"
+    a, b = probe_r18.inputs("cpu", m=16)
+    want = probe_r18.dot_ref(a, b, 64, transpose=transpose)
+    cut = b.clone()
+    if transpose:
+        cut[:, 48:64] = 0.0
+    else:
+        cut[48:64] = 0.0
+    probe_r18.sum_err(_resident_order(a, b, 64, transpose), want, 64, row)
+    for got in (_resident_order(a, cut, 64, transpose),
+                probe_r18.dot_ref(a, cut, 64, transpose=transpose)):
+        with pytest.raises(AssertionError):
+            probe_r18.sum_err(got, want, 64, f"{row} without warp 3's share")
 
 
 def test_cpu_wrappers_count_plain_calls_only():
