@@ -47,9 +47,23 @@
 // columns a lane, unroll 1 or 2, zeroing, the run's length, carries in
 // registers, b^T staged once, no swizzle, and the FFMA loop alone.
 //
-// P3 runs on the tensor cores, mma.sync m16n8k16 bf16 -> f32, the M=14 case
-// padded to 16 rows with zero registers (the inputs stay 14 rows); thread n
-// of 128 owns column n, b^T staged at a padded stride.
+// P3 (probe_dot_bf16_kernel<N>) runs on the tensor cores, wgmma.mma_async
+// bf16 -> f32, which takes 64 rows of A: a (M <= 64 rows) as A would waste
+// most of them, so the block computes the product transposed, out^T = b^T .
+// a^T. b, staged once as stored (k, n), is the A operand, read MN-major
+// through the descriptor's transpose bit as two 64-row tiles, one a
+// warpgroup; a, its rows padded with zero rows to N = M rounded up to 8 (an
+// instance per N), is the B operand, K-major. A rep is 8 wgmma m64nNk16 a
+// warpgroup (eight 16-deep steps, scale-d 0 on the first) in one commit
+// group, then one __fadd_rn per accumulator into the float32 carry, the
+// plain version's acc + p. The stages are the canonical 8 x 8 core-matrix
+// layout without swizzle (a core matrix is 128 contiguous bytes, read
+// without bank conflicts). Measured (PERF.md, the P3 ladder): M=56 runs at
+// its one-SM bound, while M=14's 16 wgmma of N=16 take two thirds of the
+// time of M=56's of N=56; a second accumulator set to overlap the adds did
+// not pay (and across loop iterations ptxas serialized the wgmma), nor did
+// one warpgroup for both tiles, the swizzle, A from registers or the
+// untransposed product.
 //
 // P4 and P5 (probe_dot_stream_kernel): at K=4096 b alone is 2 MiB, far above
 // the 227 KB a block can have, so a and b pass through shared memory in
@@ -79,7 +93,6 @@
 // P3's bound is the bf16 tensor rate of one SM; the card bound over 132 SMs
 // is reported beside each one-SM bound.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,7 +102,6 @@ namespace {
 
 constexpr int kN = 128;        // output columns
 constexpr int kS = 128;        // contraction slice
-constexpr int kThreads = 128;  // P3: one thread per output column
 
 enum Variant { kNormal = 0, kTransposed = 1, kStreamK = 2, kIndep = 3 };
 
@@ -363,80 +375,212 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
     }
 }
 
-// P3: bf16 a (m, 128) and b (128, 128) resident; MT 16-row tiles of a.
-// Warp w owns the four 8-column tiles of columns [32 w, 32 w + 32).
-constexpr int kBfStride = kS + 8;  // staged row stride in bf16 (bank-conflict free)
+// P3: bf16 a (m, 128) and b (128, 128) resident; two warpgroups compute the
+// product transposed, out^T (128, N) = b^T (128, 128) . a^T (128, N), on
+// wgmma.mma_async m64nNk16 (f32 accumulators), N = m rounded up to 8;
+// warpgroup g owns the 64-row tile g of out^T (columns [64 g, 64 g + 64) of
+// out).
+constexpr int kBfThreads = 256;   // two warpgroups
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
+// Element offset of b[k, n] in the A operand's stage: b^T read MN-major
+// (the transpose bit), no swizzle. 8 x 8 core matrices of 128 B, row k % 8
+// holding n .. n + 7 of one k; core (k / 8, n / 8) at core index 16 (k / 8)
+// + n / 8, so an n group's stride (SBO) is 128 B and a k group's (LBO) 2 KiB.
+__device__ __forceinline__ int bf_b_stage(int k, int n) {
+    return (((k >> 3) * 16 + (n >> 3)) << 6) + ((k & 7) << 3) + (n & 7);
 }
 
-template <int MT>
-__global__ void __launch_bounds__(kThreads)
-    probe_dot_bf16_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
+// Element offset of a[i, k] (i < N; rows i >= m are zero) in the B
+// operand's stage, K-major: core (i / 8, k / 8) at core index (k / 8) (N /
+// 8) + i / 8, row i % 8 holding k .. k + 7; an i group's stride (SBO) 128
+// B, a k group's (LBO) N / 8 x 128 B.
+template <int N>
+__device__ __forceinline__ int bf_a_stage(int i, int k) {
+    return (((k >> 3) * (N / 8) + (i >> 3)) << 6) + ((i & 7) << 3) + (k & 7);
+}
+
+// A shared-memory matrix descriptor, no swizzle: the start address, the
+// leading (LBO) and stride (SBO) byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+    return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+           (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Ties each register to this point of the program: reads of the
+// accumulators after their wait stay after the wait.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x N tile, N / 2 floats a thread) = A . B (+ d if acc): one
+// wgmma.mma_async m64nNk16, A from descriptor da (MN-major: imm-trans-a 1),
+// B from db (K-major).
+template <int N>
+__device__ __forceinline__ void wgmma_tile(float (&d)[N / 2], uint64_t da, uint64_t db, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_tile<8>(float (&d)[4], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile<16>(float (&d)[8], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile<24>(float (&d)[12], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile<32>(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile<40>(float (&d)[20], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19}, %20, %21, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19])
+        : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile<48>(float (&d)[24], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile<56>(float (&d)[28], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %30, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27}, %28, %29, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+        : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile<64>(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc));
+}
+
+template <int N>
+__global__ void __launch_bounds__(kBfThreads, 1)
+    probe_dot_bf16_kernel(const uint16_t* __restrict__ a, const uint16_t* __restrict__ b,
                           float* __restrict__ out, int m, int reps) {
-    extern __shared__ __align__(16) __nv_bfloat16 hsmem[];
-    __nv_bfloat16* a_s = hsmem;                   // (m, kBfStride)
-    __nv_bfloat16* bt_s = hsmem + MT * 16 * kBfStride;  // b transposed, (128, kBfStride)
-    const int tid = threadIdx.x;
-    for (int i = tid; i < m * kS; i += kThreads) a_s[(i / kS) * kBfStride + i % kS] = a[i];
-    for (int i = tid; i < kS * kN; i += kThreads) bt_s[(i % kN) * kBfStride + i / kN] = b[i];
+    extern __shared__ __align__(128) uint16_t hsmem[];
+    uint16_t* b_s = hsmem;                         // A operand, (128, 128)
+    uint16_t* a_s = hsmem + kS * kN;               // B operand, (N, 128)
+    const int tid = threadIdx.x, g = tid >> 7;
+    for (int e = tid; e < kS * kN; e += kBfThreads) b_s[bf_b_stage(e >> 7, e & 127)] = b[e];
+    for (int e = tid; e < N * kS; e += kBfThreads)
+        a_s[bf_a_stage<N>(e >> 7, e & 127)] = (e >> 7) < m ? a[e] : (uint16_t)0;
+    fence_proxy_async();                           // the stores, visible to wgmma's reads
     __syncthreads();
-    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-    float acc[MT][4][4];
+    // descriptors in 16-byte units: tile g's rows start at core 8 g, k step s
+    // at core 32 s of b's stage and core 2 s N / 8 of a's
+    const uint64_t da = smem_desc(b_s, 16 * 128, 128) + 64 * g;
+    const uint64_t db = smem_desc(a_s, N / 8 * 128, 128);
+    float carry[N / 2], d[N / 2];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[mt][j][q] = 0.0f;
+    for (int i = 0; i < N / 2; ++i) carry[i] = 0.0f;
     for (int r = 0; r < reps; ++r) {
-        asm volatile("" ::: "memory");
+        // the rep's product from zero: 8 k steps, the first with scale-d 0
+        wgmma_fence();
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-            const int row0 = mt * 16 + g, row1 = row0 + 8;
+        for (int s = 0; s < kS / 16; ++s) wgmma_tile<N>(d, da + 256 * s, db + 2 * N * s, s > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(d);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int col = (warp * 4 + j) * 8 + g;  // b column of this lane's B fragment
-                float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f, d3 = 0.0f;
-#pragma unroll
-                for (int ks = 0; ks < kS; ks += 16) {
-                    const int kk = ks + 2 * t;
-                    const uint32_t a0 = row0 < m ? ld_pair(a_s + row0 * kBfStride + kk) : 0u;
-                    const uint32_t a1 = row1 < m ? ld_pair(a_s + row1 * kBfStride + kk) : 0u;
-                    const uint32_t a2 = row0 < m ? ld_pair(a_s + row0 * kBfStride + kk + 8) : 0u;
-                    const uint32_t a3 = row1 < m ? ld_pair(a_s + row1 * kBfStride + kk + 8) : 0u;
-                    const uint32_t b0 = ld_pair(bt_s + col * kBfStride + kk);
-                    const uint32_t b1 = ld_pair(bt_s + col * kBfStride + kk + 8);
-                    asm volatile(
-                        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-                        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-                        : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
-                        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-                }
-                acc[mt][j][0] = __fadd_rn(acc[mt][j][0], d0);
-                acc[mt][j][1] = __fadd_rn(acc[mt][j][1], d1);
-                acc[mt][j][2] = __fadd_rn(acc[mt][j][2], d2);
-                acc[mt][j][3] = __fadd_rn(acc[mt][j][3], d3);
-            }
-        }
+        for (int i = 0; i < N / 2; ++i) carry[i] = __fadd_rn(carry[i], d[i]);
     }
+    // the fragment: warp w of the warpgroup, lane l holds rows 16 w + l / 4
+    // (+ 8) of its tile and columns 8 j + 2 (l % 4) (+ 1); row n of out^T is
+    // column n of out, column i its row i
+    const int w = (tid >> 5) & 3, l = tid & 31;
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-        const int row0 = mt * 16 + g, row1 = row0 + 8;
+    for (int j = 0; j < N / 8; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int c0 = (warp * 4 + j) * 8 + 2 * t;
-            if (row0 < m) {
-                out[row0 * kN + c0] = acc[mt][j][0];
-                out[row0 * kN + c0 + 1] = acc[mt][j][1];
-            }
-            if (row1 < m) {
-                out[row1 * kN + c0] = acc[mt][j][2];
-                out[row1 * kN + c0 + 1] = acc[mt][j][3];
-            }
+        for (int q = 0; q < 4; ++q) {
+            const int n = 64 * g + 16 * w + (l >> 2) + 8 * (q >> 1);
+            const int i = 8 * j + 2 * (l & 3) + (q & 1);
+            if (i < m) out[i * kN + n] = carry[4 * j + q];
         }
-    }
 }
 
 template <int M>
@@ -462,11 +606,16 @@ int launch_f32(const float* a, const float* b, float* out, int k, int reps, int 
     return (int)cudaErrorInvalidValue;
 }
 
-template <int MT>
-int launch_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b, float* out, int m, int reps,
+// Dynamic shared memory of P3 at N: b, then a padded to N rows.
+__host__ __device__ constexpr int bf16_smem(int n) {
+    return (kS * kN + n * kS) * 2;
+}
+
+template <int N>
+int launch_bf16(const uint16_t* a, const uint16_t* b, float* out, int m, int reps,
                 cudaStream_t stream) {
-    const int smem = (MT * 16 + kS) * kBfStride * 2;
-    return launch_block(probe_dot_bf16_kernel<MT>, kThreads, smem, stream, a, b, out, m, reps);
+    return launch_block(probe_dot_bf16_kernel<N>, kBfThreads, bf16_smem(N), stream, a, b, out,
+                        m, reps);
 }
 
 }  // namespace
@@ -503,16 +652,32 @@ extern "C" int atray_probe_dot_shape(int m, int variant, int* shape) {
 }
 
 // P3: bf16 a (m, 128) with m in [1, 64], b (128, 128); out (m, 128) f32.
+// The instance N = m rounded up to 8.
 extern "C" int atray_probe_dot_bf16(const void* a, const void* b, float* out, int m, int reps,
                                     void* stream) {
-    if (m < 1 || m > 64) return (int)cudaErrorInvalidValue;
-    const __nv_bfloat16* ha = static_cast<const __nv_bfloat16*>(a);
-    const __nv_bfloat16* hb = static_cast<const __nv_bfloat16*>(b);
+    if (m < 1 || m > 64 || reps < 0) return (int)cudaErrorInvalidValue;
+    const uint16_t* ha = static_cast<const uint16_t*>(a);
+    const uint16_t* hb = static_cast<const uint16_t*>(b);
     cudaStream_t s = (cudaStream_t)stream;
-    switch ((m + 15) / 16) {
-        case 1: return launch_bf16<1>(ha, hb, out, m, reps, s);
-        case 2: return launch_bf16<2>(ha, hb, out, m, reps, s);
-        case 3: return launch_bf16<3>(ha, hb, out, m, reps, s);
-        default: return launch_bf16<4>(ha, hb, out, m, reps, s);
+    switch ((m + 7) / 8) {
+        case 1: return launch_bf16<8>(ha, hb, out, m, reps, s);
+        case 2: return launch_bf16<16>(ha, hb, out, m, reps, s);
+        case 3: return launch_bf16<24>(ha, hb, out, m, reps, s);
+        case 4: return launch_bf16<32>(ha, hb, out, m, reps, s);
+        case 5: return launch_bf16<40>(ha, hb, out, m, reps, s);
+        case 6: return launch_bf16<48>(ha, hb, out, m, reps, s);
+        case 7: return launch_bf16<56>(ha, hb, out, m, reps, s);
+        default: return launch_bf16<64>(ha, hb, out, m, reps, s);
     }
+}
+
+// P3's launch shape at m rows: threads, dynamic shared memory in bytes and
+// the instance's N, into shape[0..2].
+extern "C" int atray_probe_dot_bf16_shape(int m, int* shape) {
+    if (m < 1 || m > 64) return (int)cudaErrorInvalidValue;
+    const int n = (m + 7) / 8 * 8;
+    shape[0] = kBfThreads;
+    shape[1] = bf16_smem(n);
+    shape[2] = n;
+    return 0;
 }

@@ -86,12 +86,14 @@ _SIGNATURES = {
     "atray_probe_dot": [_P, _P, _P] + [ctypes.c_int] * 4 + [_P],
     "atray_probe_dot_shape": [ctypes.c_int, ctypes.c_int, _P],
     "atray_probe_dot_bf16": [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
+    "atray_probe_dot_bf16_shape": [ctypes.c_int, _P],
     "atray_probe_route_loop": [_P] * 4 + [ctypes.c_int] * 2 + [_P],
     "atray_probe_route_dyn": [_P] * 5,
     "atray_probe_route_nested": [_P] * 5 + [ctypes.c_int] * 3 + [_P],
     "atray_probe_route_bigread": [_P, _P, ctypes.c_int, _P, _P, _P, ctypes.c_int, _P],
     "atray_probe_take_rm": [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
     "atray_probe_stream_take": [_P, _P, _P] + [ctypes.c_int] * 3 + [_P],
+    "atray_probe_stream_take_shape": [_P],
 }
 
 

@@ -19,11 +19,18 @@ sums runs of 16 reps' partials before adding them to its carry in shared
 memory (one carry a warp for every rep failed the check on these normal
 inputs), and the carries meet in warp order at the end. One SM's float32
 rate bounds it (``bound_ms * 132``); ``PERF.md``'s P1/P2 ladder has the
-other shapes measured. ``python -m
+other shapes measured. P3 (``probe_dot_bf16_kernel<N>``) runs on
+``wgmma``, which takes 64 rows of its A operand, so it computes the product
+transposed, ``out^T = b^T . a^T``: b, staged as stored, is A (two 64-row
+tiles read through the transpose bit, one for each of two warpgroups) and
+a, padded with zero rows to N = M rounded up to 8, is B; each rep a
+warpgroup's 8 ``wgmma`` form its tile of the product from zero and one
+float32 add a value puts it on the carry. One SM's bf16 tensor rate bounds
+it; ``PERF.md``'s P3 ladder has the other shapes measured. ``python -m
 atray_tpu_torch.probes.probe_r18`` prints the script's table on the card:
-ns per product of P2 and P1 at M = 14 and 16, each line with the block's
-threads, shared memory, registers and its time over the one-SM bound, and
-of P3 at M = 14 and 56.
+ns per product of P2 and P1 at M = 14 and 16 and of P3 at M = 14 and 56,
+each line with the block's threads, shared memory, registers and its time
+over the one-SM bound.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ K = 128
 N = 128
 F32_ROWS = (14, 16)        # the kernel's float32 row counts
 BF16_ROWS = (14, 56)       # the script's bf16 row counts
+BF16_CHECK_ROWS = (1, 8, 14, 16, 17, 24, 32, 40, 48, 56, 64)   # every instance N, and its edges
 
 
 def product_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -99,6 +107,8 @@ def dot_n(a: torch.Tensor, b: torch.Tensor, reps: int = REPS) -> torch.Tensor:
 def dot_bf16(a: torch.Tensor, b: torch.Tensor, reps: int = REPS) -> torch.Tensor:
     """P3: ``sum over reps of a . b`` with bf16 a (M, 128), M <= 64, and b
     (128, 128), products and sum in float32 (tensor cores on the card)."""
+    if reps < 0:
+        raise ValueError("reps must be >= 0")
     dev = _timing.check_device(a, b)
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise TypeError("a and b must be bfloat16")
@@ -134,6 +144,15 @@ def bf16_inputs(dev, m: int, rng) -> tuple:
     return a, b
 
 
+def permutation_b(dev, rng) -> torch.Tensor:
+    """A bf16 (128, 128) permutation: one 1 in each column and each row, so
+    that out's column n is a's column of that row, and a k or n mapping
+    fault shows."""
+    b = np.zeros((K, N), np.float32)
+    b[rng.permutation(K), np.arange(N)] = 1.0
+    return torch.from_numpy(b).to(torch.bfloat16).to(dev)
+
+
 def timed(kernel: str, label: str, fn: Callable[[int], object], work, reps: int,
           ops_per_s=_timing.FP32_OPS_PER_S) -> _timing.Timed:
     """One launch of ``fn(reps)`` timed after a warm-up of two reps, with the
@@ -160,8 +179,9 @@ def sum_err(got: torch.Tensor, want: torch.Tensor, reps: int, what: str) -> floa
 def check(dev: torch.device, reps: int = 64, out=print) -> dict:
     """Each kernel against its plain version on the script's inputs: P1 and
     P2 at M = 14 and 16 and reps 0, 1 and ``reps``, within rtol 1e-5, atol
-    1e-5 * reps; P3 (0/1 operands) equal at ``reps``. Returns the max |diff|
-    of each kernel."""
+    1e-5 * reps; P3 (0/1 operands) equal at reps 0, 1 and ``reps``, at every
+    instance's M and its edges, with the script's b and a permutation b.
+    Returns the max |diff| of each kernel."""
     errs = {"probe_dot_t": 0.0, "probe_dot_n": 0.0}
     cases = (0, 1, reps)
     for m in F32_ROWS:
@@ -173,14 +193,17 @@ def check(dev: torch.device, reps: int = 64, out=print) -> dict:
                 err = sum_err(fn(a, b, r), want, r, f"{what} M={m} reps={r}")
                 errs[name] = max(errs[name], err)
     rng = np.random.default_rng(1)
-    for m in BF16_ROWS:
+    perm = permutation_b(dev, rng)
+    for m in BF16_CHECK_ROWS:
         ha, hb = bf16_inputs(dev, m, rng)
-        if not torch.equal(dot_bf16(ha, hb, reps), dot_ref(ha, hb, reps, "probe_dot_bf16")):
-            raise AssertionError(f"P3 M={m}: kernel != plain version")
+        for what, b in (("b at density 0.01", hb), ("b a permutation", perm)):
+            for r in cases:
+                if not torch.equal(dot_bf16(ha, b, r), dot_ref(ha, b, r, "probe_dot_bf16")):
+                    raise AssertionError(f"P3 M={m} reps={r} {what}: kernel != plain version")
     errs["probe_dot_bf16"] = 0.0
     out(f"probe_r18 check (P1, P2 at M={F32_ROWS}, reps {cases}): P1 max |diff| "
-        f"{errs['probe_dot_t']:.3g}, P2 {errs['probe_dot_n']:.3g} (rtol 1e-5, atol 1e-5 x reps), "
-        f"P3 M={BF16_ROWS} equal ({reps} reps)")
+        f"{errs['probe_dot_t']:.3g}, P2 {errs['probe_dot_n']:.3g} (rtol 1e-5, atol 1e-5 x reps); "
+        f"P3 equal at M={BF16_CHECK_ROWS}, reps {cases}, b at density 0.01 and a permutation")
     return errs
 
 
@@ -191,6 +214,22 @@ def launch_shape(m: int, variant: int) -> tuple:
     shape = (ctypes.c_int * 3)()
     _build.check(_build.load().atray_probe_dot_shape(m, variant, shape), "atray_probe_dot_shape")
     return shape[0], shape[1], shape[2]
+
+
+def bf16_shape(m: int) -> tuple:
+    """(threads, dynamic shared memory bytes, the instance's N) of P3's
+    block at ``m`` rows."""
+    shape = (ctypes.c_int * 3)()
+    _build.check(_build.load().atray_probe_dot_bf16_shape(m, shape), "atray_probe_dot_bf16_shape")
+    return shape[0], shape[1], shape[2]
+
+
+def bf16_resources(m: int) -> str:
+    """P3's threads, shared memory, and ptxas's registers and spills of the
+    instance that ``m`` rows select."""
+    threads, smem, n = bf16_shape(m)
+    return (f"{threads} threads, {smem} B shared memory, wgmma m64n{n}k16, ptxas "
+            f"{_timing.ptxas(f'probe_dot_bf16_kernelILi{n}EE')}")
 
 
 def resources(m: int, variant: int, k: int = K) -> str:
@@ -230,7 +269,8 @@ def table(dev: torch.device, reps: int = REPS, out=print) -> List[_timing.Timed]
         t = timed("probe_dot_bf16", f"M={m}", lambda r: dot_bf16(ha, hb, r),
                   product_work(m, K, reps, elem=2), reps, _timing.BF16_OPS_PER_S)
         out(f"probe_r18 bf16 M={m:3d} dot: {t.ms * 1e6 / reps:8.1f} ns/dot ({t.ms:.4f} ms; "
-            f"{t.bound_text()})")
+            f"{t.bound_text()}; {_timing.over_one_sm(t):.3f}x the one-SM bound; "
+            f"{bf16_resources(m)})")
         res.append(t)
     return res
 

@@ -149,13 +149,14 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     at the scripts' trip counts, the takes at 2,073,600 lanes x 14 planes on
     the maps of every occupancy and a scattered one); then, counted, each
     probe's table at the script's shapes and reps, every line with its bound
-    on the card and (for the one-block kernels P1-P9) on one SM, P1's, P2's,
-    P4's and P5's also with the time over the one-SM bound (a time under it
-    fails), the block's threads and shared memory and ptxas's registers and
-    spills; then the plain version's and the library call's time
-    (``torch.matmul`` for P1-P5, its first call apart and its kernels'
-    names and grids from the profiler; ``index_select`` for P10-P11) at one
-    variant of each.
+    on the card and (for the one-block kernels P1-P9) on one SM, P1's-P5's
+    also with the time over the one-SM bound (a time under it fails), the
+    block's threads and shared memory and ptxas's registers and spills, P11's
+    with its resources and a second bound from the bytes its design moves
+    (staged rows, index, output); then the plain version's and the library
+    call's time (``torch.matmul`` for P1-P5, ``index_select`` for P10-P11:
+    its first call apart, then the mean of warm calls, with its kernels'
+    names and grids from the profiler) at one variant of each.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every profile (phases 4, 8, 9, 11, 12) prints device time by kernel
@@ -677,21 +678,47 @@ _KERNEL_NAMES = ("wide_shade", "lane_take", "lane_scatter", "wide_exact", "treel
                  "treelet_phase_b", "ppacket")
 
 
-def _profile_frame(run, frame_s, gpu, label="phase 4", what="one slice frame"):
-    """Device time of one run by kernel, from torch.profiler; the busy
-    share is kernel time over the un-profiled wall time ``frame_s``."""
+_EDGE = "spin_kernel"   # torch.cuda._sleep's kernel, which pads a profiled window
+_EDGE_LEAD = 256        # padding kernels before the profiled call
+_EDGE_TAIL = 16         # and after it
+
+
+def _profiled_kernels(fn):
+    """(events, profile, whole) of one call of ``fn`` under torch.profiler:
+    its device events (``key_averages``, kernels only), and whether the
+    window is whole. The profiler loses the records of a window's first
+    kernels, more the later in the process (without padding, phase 14's
+    library lines read "the profiler recorded no kernel"), and at times of
+    its last: so short kernels of our own open and close the window, and
+    are left out. The window is whole where one of them is both its first
+    and its last device record: then no record of ``fn``'s was lost."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
+        for _ in range(_EDGE_LEAD):
+            torch.cuda._sleep(1)
         torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(_EDGE_TAIL):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    whole = bool(dev) and _EDGE in dev[0].name and _EDGE in dev[-1].name
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _EDGE not in e.key], prof, whole
+
+
+def _profile_frame(run, frame_s, gpu, label="phase 4", what="one slice frame"):
+    """Device time of one run by kernel, from torch.profiler; the busy
+    share is kernel time over the un-profiled wall time ``frame_s``."""
     groups = {k: [0.0, 0] for k in _KERNEL_NAMES + ("torch ops",)}
     top = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    evs, _, whole = _profiled_kernels(run)
+    for e in evs:
         us = float(getattr(e, "self_device_time_total", 0.0))
         name = next((k for k in _KERNEL_NAMES if f"{k}_kernel" in e.key), "torch ops")
         groups[name][0] += us
@@ -705,7 +732,8 @@ def _profile_frame(run, frame_s, gpu, label="phase 4", what="one slice frame"):
     parts = ", ".join(f"{k} {v[0] / 1e3:.3f} ms ({100 * v[0] / total:.1f}%, {v[1]} launches)"
                       for k, v in groups.items() if v[1])
     print(f"{label} profile of {what}: device kernel time {total / 1e3:.3f} ms = "
-          f"{parts}; busy share {total / 1e6 / frame_s:.3f} of the {frame_s:.4f} s run [{gpu}]")
+          f"{parts}; busy share {total / 1e6 / frame_s:.3f} of the {frame_s:.4f} s run"
+          f"{'' if whole else ' (the profiler lost records at the edge of the window)'} [{gpu}]")
     lanes = [f"{k} {groups[k][0] / 1e3:.4f} ms over {groups[k][1]} launches"
              for k in ("lane_take", "lane_scatter") if groups[k][1]]
     if lanes:
@@ -1118,14 +1146,7 @@ def phase_gradient(scene, accel, scene_host, accel_host, dev, gpu):
 def _device_ms(fn):
     """(ms, kernels) of device kernel time of one call of ``fn``, from
     torch.profiler."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    evs = _profiled_kernels(fn)[0]
     return (sum(float(getattr(e, "self_device_time_total", 0.0)) for e in evs) / 1e3,
             sum(e.count for e in evs))
 
@@ -2021,21 +2042,17 @@ _F32_PRODUCTS = {"probe_dot_n": (0, 128), "probe_dot_t": (1, 128), "probe_dot_k"
 def _library_kernels(fn):
     """The device kernels of one call of ``fn`` from torch.profiler: name,
     device microseconds and, where the exported trace records them, grid and
-    block."""
+    block; up to three windows, until one is whole."""
     import json
     import os
     import tempfile
 
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    for _ in range(3):
+        evs, prof, whole = _profiled_kernels(fn)
+        if whole:
+            break
     kern = [(e.key, float(getattr(e, "self_device_time_total", 0.0)))
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.key.startswith(("Memset", "Memcpy"))]
+            for e in evs if not e.key.startswith(("Memset", "Memcpy"))]
     if not kern:
         return "the profiler recorded no kernel (not measured)"
     fd, path = tempfile.mkstemp(suffix=".json")
@@ -2049,7 +2066,7 @@ def _library_kernels(fn):
     shape = {e["name"]: f"grid {e['args'].get('grid')} block {e['args'].get('block')}"
              for e in events if e.get("cat") == "kernel"}
     return "; ".join(f"{name[:120]} {us:.1f} us {shape.get(name, 'grid not in the trace')}"
-                     for name, us in kern)
+                     for name, us in kern) + ("" if whole else " (a window's edge was lost)")
 
 
 def _probe_plain_and_library(dev):
@@ -2073,6 +2090,7 @@ def _probe_plain_and_library(dev):
         # the mean of the calls after it
         first = ms(fn)
         warm = ms(fn, reps)
+        torch.cuda.synchronize()
         print(f"phase 14 {name} library call: first {first:.4f} ms, then {warm:.4f} ms a call; "
               f"kernels {_library_kernels(fn)}")
         return warm
@@ -2122,13 +2140,16 @@ def _probe_plain_and_library(dev):
                        probe_r21.take_rm_ref(base, idx)):
         raise AssertionError("phase 14: index_select != the ray-major take")
     res["probe_take_rm"] = (ms(lambda: probe_r21.take_rm_ref(base, idx), 3),
-                            ms(lambda: torch.index_select(flat, 0, fidx), 10))
+                            lib_ms("probe_take_rm", lambda: torch.index_select(flat, 0, fidx), 10))
     del flat, fidx, src
     planes = base.permute(1, 0, 2).contiguous()
     cols_z = torch.cat([planes.reshape(c, -1), planes.new_zeros(c, 1)], 1)
     idx_z = torch.where(ok, idx, rows * lane).long()
-    res["probe_stream_take"] = (ms(lambda: probe_r22.stream_take_ref(planes, idx), 3),
-                                ms(lambda: torch.index_select(cols_z, 1, idx_z), 10))
+    res["probe_stream_take"] = (
+        ms(lambda: probe_r22.stream_take_ref(planes, idx), 3),
+        lib_ms("probe_stream_take", lambda: torch.index_select(cols_z, 1, idx_z), 10))
+    # P11's second bound: the bytes its design moves on this map
+    res["design_bound"] = _timing.bound(probe_r22.design_work(idx, c), 0.0)
     return res
 
 
@@ -2156,7 +2177,10 @@ def phase_probes(dev, gpu):
         (t,) = [t for t in timed if t.kernel == name and t.label == label]
         res[name] = {"launches": launches, "err": errs[name], "t": t}
     t_table = time.perf_counter() - t_phase - t_check
-    for name, (plain_ms, lib_ms) in _probe_plain_and_library(dev).items():
+    lib_res = _probe_plain_and_library(dev)
+    design = lib_res.pop("design_bound")
+    res["probe_stream_take"]["design_bound"] = design
+    for name, (plain_ms, lib_ms) in lib_res.items():
         res[name].update(plain_ms=plain_ms, library_ms=lib_ms)
         t = res[name]["t"]
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
@@ -2164,6 +2188,12 @@ def phase_probes(dev, gpu):
         if name in _F32_PRODUCTS:
             shape = (f", {_timing.over_one_sm(t):.3f}x the one-SM bound, "
                      f"{probe_r18.resources(14, *_F32_PRODUCTS[name])}")
+        elif name == "probe_dot_bf16":
+            shape = (f", {_timing.over_one_sm(t):.3f}x the one-SM bound, "
+                     f"{probe_r18.bf16_resources(14)}")
+        elif name == "probe_stream_take":
+            shape = (f", {t.ms / design[0]:.3f}x the design's bound {design[0]:.6g} ms "
+                     f"(staged rows, index, output), {probe_r22.resources()}")
         say(f"{name} {t.label}: kernel {t.ms:.4f} ms, {t.bound_text()}, plain {plain_ms:.4f} ms, "
             f"library {lib}, {res[name]['launches']} launches in the probes' run{shape}")
     print(f"phase 14 probes: checks {t_check:.1f} s, tables {t_table:.1f} s, all "
@@ -2177,7 +2207,8 @@ def _entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_m
     ``plain_ms``), since their timed set is cut, and ``warp_bound_ms``
     (the bound from the warp's own work); the
     probes add the ``variant`` timed and, for one-block kernels,
-    ``one_sm_bound_ms``."""
+    ``one_sm_bound_ms``, P11 ``design_bound_ms`` (the bytes its design
+    moves)."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms, **rays}
@@ -2281,7 +2312,9 @@ def main() -> int:
                (probes[name]["t"].bound_ms, probes[name]["t"].bound_by),
                probes[name]["library_ms"], variant=probes[name]["t"].label,
                **({"one_sm_bound_ms": probes[name]["t"].bound_ms * 132}
-                  if probes[name]["t"].one_block else {}))
+                  if probes[name]["t"].one_block else {}),
+               **({"design_bound_ms": probes[name]["design_bound"][0]}
+                  if "design_bound" in probes[name] else {}))
         for name, source, replaces, _ in PROBES
     ]}))
     print(json.dumps({"ok": True, "device": {

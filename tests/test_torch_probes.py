@@ -25,7 +25,7 @@ from jax.experimental import pallas as pl  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from atray_tpu_torch.kernels import _build  # noqa: E402
-from atray_tpu_torch.kernels.lane_pack import pack_indices  # noqa: E402
+from atray_tpu_torch.kernels.lane_pack import pack_indices, unpack_indices  # noqa: E402
 from atray_tpu_torch.probes import (  # noqa: E402
     probe_r18, probe_r19, probe_r20, probe_r21, probe_r22)
 
@@ -225,12 +225,25 @@ def test_plain_version_matches_tpu_probe_kernel(row):
 
 
 @pytest.mark.parametrize("reps", [0, 1])
-@pytest.mark.parametrize("row", ["P4", "P5", "P1", "P2"])
+@pytest.mark.parametrize("row", ["P4", "P5", "P1", "P2", "P3"])
 def test_stream_products_match_tpu_kernels_at_reps_0_and_1(row, reps):
     # no rep gives zeros and one rep one product: where a split-K share or a
     # ring stage that is dropped, repeated or read early shows plainly (P1,
-    # P2: also a swizzled row of b's stage)
+    # P2: also a swizzled row of b's stage; P3: b a permutation, so that out's
+    # column n is a's column of b's row for n, and a k or n mapping fault shows)
     rng = np.random.default_rng(40 + reps)
+    if row == "P3":
+        b = probe_r18.permutation_b("cpu", rng)
+        for m in probe_r18.BF16_ROWS:
+            a = jnp.asarray(rng.normal(size=(m, 128)).astype(np.float32)).astype(jnp.bfloat16)
+            ref = _call(functools.partial(_script("probe_r18")["_kern_bf16"], reps=reps),
+                        F32((m, 128), jnp.float32), a, jnp.asarray(b.float().numpy()).astype(
+                            jnp.bfloat16))
+            got = probe_r18.dot_bf16(_t(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16), b,
+                                     reps).numpy()
+            np.testing.assert_array_equal(got, ref)
+            assert (np.abs(ref).max() > 0) == (reps > 0)
+        return
     if row in ("P1", "P2"):
         kern, fn = ("_kern_t", probe_r18.dot_t) if row == "P1" else ("_kern_n", probe_r18.dot_n)
         for m in probe_r18.F32_ROWS:
@@ -328,6 +341,50 @@ def test_p1_p2_check_catches_one_dropped_share(row):
                 probe_r18.dot_ref(a, cut, 64, transpose=transpose)):
         with pytest.raises(AssertionError):
             probe_r18.sum_err(got, want, 64, f"{row} without warp 3's share")
+
+
+def _span_rows(idx, rows):
+    """Source rows of each output row's live lanes."""
+    return [sorted({int(s) // LANE for s in idx[j * LANE:(j + 1) * LANE] if 0 <= s < rows * LANE})
+            for j in range(rows)]
+
+
+def test_row_spans_give_the_spans_they_claim():
+    # the kernel stages each output row's span of source rows where it fits
+    # a stage, gathers a wider row directly and only zeroes a dead one:
+    # row_spans and staged_bytes must give exactly those spans
+    rng = np.random.default_rng(47)
+    rows = 256
+    mask = (rng.random(rows * LANE) < 0.3) & np.repeat(rng.random(rows) < 0.5, LANE)
+    packed = pack_indices(_t(rng.random(rows * LANE) < 0.15)).view(rows, LANE)
+    maps = [probe_r22.edge_map(rows), unpack_indices(_t(mask)),
+            packed[_t(rng.permutation(rows))].reshape(-1).contiguous()]
+    cap = probe_r22.STAGE_ROWS
+    for idx in maps:
+        lo, span = (t.tolist() for t in probe_r22.row_spans(idx))
+        used = _span_rows(idx.tolist(), rows)
+        for j in range(rows):
+            assert (lo[j], span[j]) == ((used[j][0], used[j][-1] - used[j][0] + 1)
+                                        if used[j] else (0, 0))
+        assert probe_r22.staged_bytes(idx, 3) == sum(u for u in span if u <= cap) * 3 * 512
+    lo, span = probe_r22.row_spans(maps[0])
+    assert [(int(lo[j]), int(span[j])) for j in (99, 100, 101, 102)] == [
+        (99, 1), (100, cap), (101 - cap, cap + 1), (0, 0)]
+
+
+def test_stream_take_plain_version_matches_tpu_kernel_on_interleaved_dead_rows():
+    # half the output rows dead and interleaved with live ones (an unpacked
+    # map, not a prefix), one plane
+    rng = np.random.default_rng(48)
+    rows = 256
+    mask = (rng.random(rows * LANE) < 0.3) & np.repeat(rng.random(rows) < 0.5, LANE)
+    idx = unpack_indices(_t(mask)).numpy()
+    cols = rng.normal(size=(1, rows, LANE)).astype(np.float32)
+    ref = np.asarray(_script("probe_r22")["take"](jnp.asarray(cols), jnp.asarray(idx), wcap=16,
+                                                  mode="full"))
+    got = probe_r22.stream_take(_t(cols), _t(idx)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert np.count_nonzero(ref) > 0 and (ref.reshape(rows, LANE) == 0).all(1).sum() > rows // 4
 
 
 def test_cpu_wrappers_count_plain_calls_only():
