@@ -23,17 +23,20 @@
 //
 // Launch shape: one block of 128 threads, thread l owning lane l and the 14
 // sums in registers; win (14, 16, 128) f32 = 114,688 B sits in shared memory
-// (what the TPU kept in VMEM); P9's idx table (8.3 MB) and slab (6.45 MB)
-// stay in device memory. The step count n is read from device memory inside
-// the kernel, as the TPU read it from SMEM, so the compiler cannot unroll the
-// loop by a known count. Where the TPU kernel's output is undefined (P8
-// without when_store) the sums are kept live by an empty asm and never
-// stored; P8's six carries are written to carry_out so that they are
-// computed at all.
+// (what the TPU kept in VMEM), and so does P8's (14, 128) out block (7,168
+// B more) when it stores; P9's idx table (8.3 MB) and slab (6.45 MB) stay
+// in device memory, the next rows' index words in flight. The step count n
+// is read from device memory inside the kernel, as the TPU read it from
+// SMEM, so the compiler cannot unroll the loop by a known count. Where the
+// TPU kernel's output is undefined (P8 without when_store) the sums are
+// kept live by an empty asm and never stored; P8's six carries are written
+// to carry_out so that they are computed at all.
 //
-// What bounds it: one SM's issue rate over a loop-carried chain; the card
-// bound (operations the function needs over 67 TFLOP/s, or its bytes) is
-// reported with the one-SM bound (x 132).
+// What bounds it: one warp scheduler's issue rate over a loop-carried
+// chain. probe_r20.issue_instr counts the instructions the function needs
+// on the busiest of the four warps (the adds of distinct sums, the stores,
+// the carries); the card bound (operations over 67 TFLOP/s, or the bytes)
+// is reported beside it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -123,6 +126,102 @@ __global__ void __launch_bounds__(kLane)
     for (int c = 0; c < kC; ++c) out[c * kLane + l] = acc[c];
 }
 
+// +0.0f that neither compiler can see as a constant, and that differs from
+// row to row as far as they know: the launch has one block, so
+// blockIdx.x * jj is 0. P8's rows start from it. A row's terms do not
+// change from row to row, so from a literal zero ptxas forms the first
+// step's sums once, before the row loop (an asm mov of 0 is folded alike).
+__device__ __forceinline__ float row_zero(int jj) { return __int_as_float((int)blockIdx.x * jj); }
+
+// A shared-memory store that ptxas cannot drop as dead (the TPU kernel's
+// store of every row into its VMEM out block), and its load back.
+__device__ __forceinline__ void sts_kept(uint32_t addr, float v) {
+    asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v));
+}
+
+__device__ __forceinline__ float lds_kept(uint32_t addr) {
+    float v;
+    asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+    return v;
+}
+
+constexpr int kMaxSteps = 7;    // a P8 row takes min(jj % 7 + 1, inner) <= 7 steps
+
+// One P8 row of q steps from ``zero``, then its store into the out tile
+// (doubled on an odd row) or, without the store, its fold into ``sink``.
+template <bool WHEN_STORE>
+__device__ __forceinline__ void nested_row(const float (&word)[kMaxSteps][kC], int q, bool odd,
+                                           float zero, uint32_t out_addr, int& sink) {
+    float acc[kC];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) acc[c] = zero;
+#pragma unroll
+    for (int r = 0; r < kMaxSteps; ++r) {
+        if (r >= q) break;
+#pragma unroll
+        for (int c = 0; c < kC; ++c) acc[c] = __fadd_rn(acc[c], word[r][c]);
+    }
+    if constexpr (WHEN_STORE) {
+#pragma unroll
+        for (int c = 0; c < kC; ++c)
+            sts_kept(out_addr + c * kLane * 4, odd ? __fmul_rn(acc[c], 2.0f) : acc[c]);
+    } else {
+#pragma unroll
+        for (int c = 0; c < kC; ++c) sink ^= __float_as_int(acc[c]);
+    }
+}
+
+struct Carries {
+    int a = 0, b = 0, c = 0, d = 0, e = 0, f = 0;
+};
+
+constexpr int kRowBlock = 14;   // rows a trip: jj % 7 and jj % 2 are constants of the unrolled row
+
+// P8's rows in blocks of 14 from jj = 0, unrolled, so that a row's step
+// count and parity are constants: with FULL (inner >= 7) a row's q is
+// jj % 7 + 1 and its code has no branch; otherwise min(jj % 7 + 1, inner).
+template <bool WHEN_STORE, bool CARRY6, bool FULL>
+__device__ __forceinline__ void nested_rows(const float (&word)[kMaxSteps][kC], int n, int inner,
+                                            uint32_t out_addr, int& sink, Carries& cs) {
+    int mod3 = 0;     // jj % 3
+    for (int j0 = 0; j0 < n; j0 += kRowBlock) {
+#pragma unroll
+        for (int u = 0; u < kRowBlock; ++u) {
+            const int jj = j0 + u;
+            if (jj >= n) break;
+            const int q = FULL ? u % 7 + 1 : min(u % 7 + 1, inner);
+            nested_row<WHEN_STORE>(word, q, u & 1, row_zero(jj), out_addr, sink);
+            if constexpr (CARRY6) {
+                cs.a += 1;
+                cs.b += jj;
+                cs.c ^= jj;
+                cs.d += 2;
+                cs.e += 3;
+                cs.f += mod3;
+                mod3 = mod3 == 2 ? 0 : mod3 + 1;
+            }
+        }
+    }
+}
+
+// P8. A row of q steps adds, for r < q, the lane's gathered word of step r
+// (window row r, k = rel - r) where it falls in the window. Those words do
+// not change from row to row, so each lane gathers its 7 x 14 once into
+// registers, +0.0 where it does not gather, as the plain version adds
+// where(ok, word, 0): a sum that starts at +0.0 never becomes -0.0, so
+// adding +0.0 leaves it unchanged and the sums stay exact. Every row starts
+// from ``row_zero`` and adds its q terms again.
+//
+// The TPU kernel stores every row's sum into its (14, 128) out block in
+// VMEM, which reaches device memory once, after the kernel; so does this
+// one: the block is a shared-memory tile beside the window, lane l writes
+// column l of each channel (no bank conflict, 14 STS a row), and after the
+// row loop each lane copies its column to ``out`` (coalesced). The tile
+// starts at zero, so n == 0 leaves ``out`` zero. Without the store the sums
+// are folded into a word that is stored only where clock64() is negative,
+// which it never is: an empty asm keeps them from the C++ compiler but not
+// from ptxas, which dropped the whole row loop. The six carries stay in
+// registers and lane 0 writes them at the end.
 template <bool WHEN_STORE, bool CARRY6>
 __global__ void __launch_bounds__(kLane)
     probe_route_nested_kernel(const int* __restrict__ n_ptr, const float* __restrict__ win,
@@ -133,38 +232,69 @@ __global__ void __launch_bounds__(kLane)
     const int l = threadIdx.x;
     const int rl = rel[l];
     const int n = *n_ptr;
-    int ca = 0, cb = 0, cc = 0, cd = 0, ce = 0, cf = 0;
-    for (int jj = 0; jj < n; ++jj) {
-        const int q = min(jj % 7 + 1, inner);
-        float acc[kC];
+    float word[kMaxSteps][kC];
 #pragma unroll
-        for (int c = 0; c < kC; ++c) acc[c] = 0.0f;
-        for (int r = 0; r < q; ++r) routed_step(nest_win_s, r & (kRows - 1), rl - r, acc);
-        if constexpr (WHEN_STORE) {
-            const bool odd = (jj & 1) != 0;
+    for (int r = 0; r < kMaxSteps; ++r) {
+        const int k = rl - r;
+        const bool ok = (unsigned)k < (unsigned)kLane;
+        const int kin = ok ? k : 0;     // a load in the window either way
 #pragma unroll
-            for (int c = 0; c < kC; ++c) out[c * kLane + l] = odd ? __fmul_rn(acc[c], 2.0f) : acc[c];
-        } else {
+        for (int c = 0; c < kC; ++c) word[r][c] = ok ? win_at(nest_win_s, c, r, kin) : 0.0f;
+    }
+    const uint32_t out_addr = smem_addr(nest_win_s + kWinFloats + l);    // column l of the tile
+    if constexpr (WHEN_STORE) {
 #pragma unroll
-            for (int c = 0; c < kC; ++c) asm volatile("" ::"f"(acc[c]));
-        }
-        if constexpr (CARRY6) {
-            ca += 1;
-            cb += jj;
-            cc ^= jj;
-            cd += 2;
-            ce += 3;
-            cf += jj % 3;
-        }
+        for (int c = 0; c < kC; ++c) sts_kept(out_addr + c * kLane * 4, 0.0f);
+    }
+    int sink = 0;
+    Carries cs;
+    if (inner >= kMaxSteps)
+        nested_rows<WHEN_STORE, CARRY6, true>(word, n, inner, out_addr, sink, cs);
+    else
+        nested_rows<WHEN_STORE, CARRY6, false>(word, n, inner, out_addr, sink, cs);
+    if constexpr (WHEN_STORE) {
+#pragma unroll
+        for (int c = 0; c < kC; ++c) out[c * kLane + l] = lds_kept(out_addr + c * kLane * 4);
+    } else {
+        if (clock64() < 0) out[l] = __int_as_float(sink);
     }
     if (CARRY6 && l == 0) {
-        carry_out[0] = ca;
-        carry_out[1] = cb;
-        carry_out[2] = cc;
-        carry_out[3] = cd;
-        carry_out[4] = ce;
-        carry_out[5] = cf;
+        carry_out[0] = cs.a;
+        carry_out[1] = cs.b;
+        carry_out[2] = cs.c;
+        carry_out[3] = cs.d;
+        carry_out[4] = cs.e;
+        carry_out[5] = cs.f;
     }
+}
+
+// P9. A row's index word depends on jj alone, never on the sums, so the
+// words of the next kDepth rows are in flight while the chain of sums runs
+// as before. Each lane copies its own word of a row into a per-lane ring
+// of kDepth slots by a 4-byte cp.async, one commit group a row, and waits
+// on the groups in order (cp.async.wait_group kDepth - 2): the word of row
+// jj + 1 is read one row ahead, so its shared-memory load overlaps row jj's
+// gathers, and row jj's slot is refilled with row jj + kDepth. What is
+// left is the gathers' bank conflicts (32 lanes at random k, about 3.5
+// wavefronts a load). A queue in registers did not hide the latency; a
+// channel-inner window with 16- or 8-byte loads, and gathering a row ahead,
+// did not pay (the P9 ladder in PERF.md §6). The loop is unrolled by kDepth
+// so that every slot index is a constant; (7 jj) % rows and (13 jj) % 450
+// advance by a step and a wrap.
+constexpr int kDepth = 16;
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
 template <bool STORE_DYN>
@@ -173,32 +303,66 @@ __global__ void __launch_bounds__(kLane)
                                int idx_rows, const float* __restrict__ win, float* __restrict__ out,
                                float* __restrict__ oslab) {
     extern __shared__ __align__(16) float big_win_s[];
+    int* ring = reinterpret_cast<int*>(big_win_s + kWinFloats);    // (kDepth, 128)
     stage_win(win, big_win_s);
     const int l = threadIdx.x;
     const int n = *n_ptr;
+    const int step = 7 % idx_rows;
+    const int* col = idx + l;
+    int next = 0;     // (7 j) % idx_rows of the next row j to copy
+#pragma unroll
+    for (int u = 0; u < kDepth; ++u) {
+        cp_async_4(ring + u * kLane + l, col + (long long)next * kLane);
+        cp_async_commit();
+        next += step;
+        if (next >= idx_rows) next -= idx_rows;
+    }
+    cp_async_wait<kDepth - 1>();
+    int rl = ring[l];
+    int orow = 0;     // (13 jj) % 450
     float acc[kC];
 #pragma unroll
     for (int c = 0; c < kC; ++c) acc[c] = 0.0f;
-    for (int jj = 0; jj < n; ++jj) {
-        const int j = (int)(((long long)jj * 7) % idx_rows);
-        const int rl = idx[(long long)j * kLane + l];
-        routed_step(big_win_s, jj & (kRows - 1), rl, acc);
-        if constexpr (STORE_DYN) {
-            const int orow = (int)(((long long)jj * 13) % kSlabRows);
-            float* dst = oslab + ((long long)(jj & 1) * kC * kSlabRows + orow) * kLane + l;
+    for (int j0 = 0; j0 < n; j0 += kDepth) {
 #pragma unroll
-            for (int c = 0; c < kC; ++c) dst[(long long)c * kSlabRows * kLane] = acc[c];
+        for (int u = 0; u < kDepth; ++u) {
+            const int jj = j0 + u;
+            if (jj < n) {
+                cp_async_wait<kDepth - 2>();
+                const int rl_next = ring[((u + 1) % kDepth) * kLane + l];
+                cp_async_4(ring + u * kLane + l, col + (long long)next * kLane);
+                cp_async_commit();
+                next += step;
+                if (next >= idx_rows) next -= idx_rows;
+                routed_step(big_win_s, jj & (kRows - 1), rl, acc);
+                if constexpr (STORE_DYN) {
+                    float* dst = oslab + ((long long)(jj & 1) * kC * kSlabRows + orow) * kLane + l;
+#pragma unroll
+                    for (int c = 0; c < kC; ++c) dst[(long long)c * kSlabRows * kLane] = acc[c];
+                    orow += 13;
+                    if (orow >= kSlabRows) orow -= kSlabRows;
+                }
+                rl = rl_next;
+            }
         }
     }
+    cp_async_wait<0>();
 #pragma unroll
     for (int c = 0; c < kC; ++c) out[c * kLane + l] = acc[c];
 }
 
 constexpr int kWinBytes = kWinFloats * 4;
+constexpr int kNestedBytes = kWinBytes + kC * kLane * 4;    // the window and the out tile
+constexpr int kBigreadBytes = kWinBytes + kDepth * kLane * 4;  // the window and the ring
 
 template <typename Kernel, typename... Args>
 int launch_one(Kernel kernel, cudaStream_t stream, Args... args) {
     return launch_block(kernel, kLane, kWinBytes, stream, args...);
+}
+
+template <typename Kernel, typename... Args>
+int launch_nested(Kernel kernel, cudaStream_t stream, Args... args) {
+    return launch_block(kernel, kLane, kNestedBytes, stream, args...);
 }
 
 template <int V>
@@ -243,11 +407,11 @@ extern "C" int atray_probe_route_nested(const int* n_ptr, const float* win, cons
                                         int carry6, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (when_store && carry6)
-        return launch_one(probe_route_nested_kernel<true, true>, s, n_ptr, win, rel, out, carry_out,
-                          inner);
+        return launch_nested(probe_route_nested_kernel<true, true>, s, n_ptr, win, rel, out,
+                             carry_out, inner);
     if (when_store)
-        return launch_one(probe_route_nested_kernel<true, false>, s, n_ptr, win, rel, out,
-                          carry_out, inner);
+        return launch_nested(probe_route_nested_kernel<true, false>, s, n_ptr, win, rel, out,
+                             carry_out, inner);
     if (carry6)
         return launch_one(probe_route_nested_kernel<false, true>, s, n_ptr, win, rel, out,
                           carry_out, inner);
@@ -263,7 +427,19 @@ extern "C" int atray_probe_route_bigread(const int* n_ptr, const int* idx, int i
     if (idx_rows <= 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     if (store_dyn)
-        return launch_one(probe_route_bigread_kernel<true>, s, n_ptr, idx, idx_rows, win, out,
-                          oslab);
-    return launch_one(probe_route_bigread_kernel<false>, s, n_ptr, idx, idx_rows, win, out, oslab);
+        return launch_block(probe_route_bigread_kernel<true>, kLane, kBigreadBytes, s, n_ptr, idx,
+                            idx_rows, win, out, oslab);
+    return launch_block(probe_route_bigread_kernel<false>, kLane, kBigreadBytes, s, n_ptr, idx,
+                        idx_rows, win, out, oslab);
+}
+
+// Launch shapes: out[0] threads a block, out[1] P8's dynamic shared memory
+// with when_store (window and out tile; the window alone without), out[2]
+// P9's, out[3] P9's index rows in flight.
+extern "C" int atray_probe_route_shape(int* out) {
+    out[0] = kLane;
+    out[1] = kNestedBytes;
+    out[2] = kBigreadBytes;
+    out[3] = kDepth;
+    return 0;
 }

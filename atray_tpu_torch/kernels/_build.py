@@ -91,6 +91,7 @@ _SIGNATURES = {
     "atray_probe_route_dyn": [_P] * 5,
     "atray_probe_route_nested": [_P] * 5 + [ctypes.c_int] * 3 + [_P],
     "atray_probe_route_bigread": [_P, _P, ctypes.c_int, _P, _P, _P, ctypes.c_int, _P],
+    "atray_probe_route_shape": [_P],
     "atray_probe_take_rm": [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
     "atray_probe_stream_take": [_P, _P, _P] + [ctypes.c_int] * 3 + [_P],
     "atray_probe_stream_take_shape": [_P],

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 import subprocess
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -16,6 +16,11 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12        # float32 peak outside the tensor cores
 BF16_OPS_PER_S = 989e12       # dense bf16 tensor-core peak
 SMS = 132                     # streaming multiprocessors of the H100 SXM
+# float32 instructions at the issue rate: one a lane a clock, half the FMA
+# peak (which counts an FMA as two operations), as chip_smoke.py counts them;
+# one warp's scheduler issues a 4 x 32-lane share of an SM's
+FP32_INSTR_PER_S = FP32_OPS_PER_S / 2
+SCHEDULER_INSTR_PER_S = FP32_INSTR_PER_S / (SMS * 4 * 32)
 
 
 def require_cuda() -> torch.device:
@@ -63,7 +68,9 @@ class Timed:
     """One timed variant of a probe: its kernel's counter name, the label
     the table prints, ms of one launch, and its bound on the whole card
     (``bound_ms`` by ``bound_by``); a one-block kernel's one-SM bound is
-    ``bound_ms * SMS``."""
+    ``bound_ms * SMS``, unless it has an issue-rate bound (``issue_bound_ms``:
+    its busiest warp's instructions over one scheduler's rate), which
+    replaces it."""
 
     kernel: str
     label: str
@@ -71,10 +78,13 @@ class Timed:
     bound_ms: float
     bound_by: str
     one_block: bool
+    issue_bound_ms: Optional[float] = None
 
     def bound_text(self) -> str:
         text = f"bound {self.bound_ms:.6g} ms by {self.bound_by} (card)"
-        if self.one_block:
+        if self.issue_bound_ms is not None:
+            text += f", {self.issue_bound_ms:.6g} ms (issue rate, {over_issue_text(self)})"
+        elif self.one_block:
             text += f", {self.bound_ms * SMS:.6g} ms (one SM)"
         return text
 
@@ -82,6 +92,28 @@ class Timed:
 def over_one_sm(t: Timed) -> float:
     """A one-block measurement's time over its one-SM bound."""
     return t.ms / (t.bound_ms * SMS)
+
+
+def issue_ms(instr: float) -> float:
+    """ms for one warp's scheduler to issue ``instr`` instructions."""
+    return instr / SCHEDULER_INSTR_PER_S * 1e3
+
+
+def at_least_bound(ms: float, bound_ms: float, what: str) -> float:
+    """``ms`` over ``bound_ms`` (inf where the bound is 0); raises where the
+    time is under its bound: the compiler must then have removed work the
+    function needs."""
+    if ms < bound_ms:
+        raise AssertionError(f"{what}: {ms:.6g} ms is under its bound of {bound_ms:.6g} ms; the "
+                             f"compiler must have removed work the function needs")
+    return ms / bound_ms if bound_ms > 0 else float("inf")
+
+
+def over_issue_text(t: Timed) -> str:
+    """"<time over the issue-rate bound>x", or why there is no ratio."""
+    if not t.issue_bound_ms:
+        return "no instruction to issue"
+    return f"{t.ms / t.issue_bound_ms:.3f}x"
 
 
 def ptxas(entry: str) -> str:

@@ -20,6 +20,15 @@ of 128 lanes with the (14, 16, 128) window in shared memory:
   ``store_dyn`` also writes the sum to row ``(13 jj) % 450`` of half
   ``jj % 2`` of a (2, 14, 450, 128) slab in device memory.
 
+P8 keeps each lane's gathered words in registers and stores every row
+into a shared-memory out block that reaches ``out`` once, after the rows,
+as the TPU's VMEM block did; each of its rows starts from a zero the
+compilers cannot see, so that no row's sums are hoisted out of the row
+loop. P9 keeps the index words of the next rows in flight in a per-lane
+``cp.async`` ring. Each probe is timed against an issue-rate bound: the
+instructions its busiest warp must issue (``issue_instr``) over one warp
+scheduler's rate; a time under it raises.
+
 ``n`` is an int32 tensor of one element on the kernel's device. Each
 wrapper launches its kernel on a CUDA tensor and runs its plain version on a
 CPU tensor. ``python -m atray_tpu_torch.probes.probe_r20`` prints the
@@ -28,6 +37,7 @@ script's table on the card.
 
 from __future__ import annotations
 
+import ctypes
 from typing import List
 
 import numpy as np
@@ -46,6 +56,15 @@ SLAB_ROWS = 450
 VARIANTS = ("empty", "iota", "dot", "build+dot")
 LOOP_CASES = (("empty", 1), ("iota", 1), ("dot", 1), ("build+dot", 1), ("build+dot", 4),
               ("build+dot", 8))
+WARPS = LANE // 32         # the block's warps, one to a scheduler
+# Instructions a warp must issue, counted as chip_smoke.py counts
+# INSTR_PER_TREELET: only what no compiler can remove.
+INSTR_PER_GATHER_STEP = C  # a step in which any lane of the warp gathers: one add a distinct sum
+INSTR_PER_IOTA_STEP = 1    # iota: the 14 sums are equal, so one add serves them all
+INSTR_PER_DOT_STEP = C     # dot: every lane adds its own column, every step
+INSTR_PER_ROW_STORE = C    # a row's 14 sums stored (P8 with when_store, P9 with store_dyn)
+INSTR_PER_ODD_ROW = C      # P8 doubles an odd row's 14 sums before it stores them
+INSTR_PER_CARRY_ROW = 6    # P8's six carries
 
 
 def _check(n: torch.Tensor, win: torch.Tensor, rel: torch.Tensor = None) -> torch.device:
@@ -218,6 +237,61 @@ def trips(dev, count: int) -> torch.Tensor:
     return torch.tensor([count], dtype=torch.int32, device=dev)
 
 
+def _np(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _gather_steps(rel, steps: int) -> np.ndarray:
+    """(WARPS, steps) bool: whether any lane of the warp gathers at step r,
+    that is has 0 <= rel - r < 128."""
+    rel = _np(rel).astype(np.int64).reshape(WARPS, 32)
+    diff = np.zeros((WARPS, steps + 1), np.int64)
+    warp = np.repeat(np.arange(WARPS), 32)
+    np.add.at(diff, (warp, np.clip(rel - (LANE - 1), 0, steps).reshape(-1)), 1)
+    np.add.at(diff, (warp, np.clip(rel + 1, 0, steps).reshape(-1)), -1)
+    return np.cumsum(diff[:, :steps], 1) > 0
+
+
+def issue_instr(kernel: str, n: int, rel=None, idx=None, variant: str = "build+dot",
+                unroll: int = 1, inner: int = 7, when_store: bool = False, carry6: bool = False,
+                store_dyn: bool = False) -> List[int]:
+    """Instructions each of the block's warps must issue in one launch of
+    ``kernel`` (a counter name, P6-P9) at trip count ``n``, on ``rel`` (P6-P8)
+    or ``idx`` (P9) and the flags: the float adds of distinct sums (14 on a
+    warp-step in which any lane of the warp gathers, ``iota`` 1 a step,
+    ``dot`` 14), P8's 14 stores a row with ``when_store`` and 14 doublings on
+    its odd rows, its 6 carry operations a row with ``carry6``, and P9's 14
+    stores a row with ``store_dyn``. A list of ``WARPS`` counts."""
+    n = max(int(n), 0)
+    if kernel in ("probe_route_loop", "probe_route_dyn"):
+        steps = n * (unroll if kernel == "probe_route_loop" else 1)
+        if kernel == "probe_route_loop" and variant != "build+dot":
+            per = {"empty": 0, "iota": INSTR_PER_IOTA_STEP, "dot": INSTR_PER_DOT_STEP}[variant]
+            return [steps * per] * WARPS
+        return [int(c) * INSTR_PER_GATHER_STEP for c in _gather_steps(rel, steps).sum(1)]
+    jj = np.arange(n)
+    if kernel == "probe_route_nested":
+        # gathering steps r < q of each warp, q = 0..7
+        before = np.concatenate([np.zeros((WARPS, 1), np.int64),
+                                 np.cumsum(_gather_steps(rel, 7), 1)], 1)
+        q = np.clip(np.minimum(jj % 7 + 1, inner), 0, 7)
+        per_row = INSTR_PER_ROW_STORE * when_store + INSTR_PER_CARRY_ROW * carry6
+        rest = n * per_row + INSTR_PER_ODD_ROW * when_store * int((jj % 2).sum())
+        return [int(before[w, q].sum()) * INSTR_PER_GATHER_STEP + rest for w in range(WARPS)]
+    if kernel == "probe_route_bigread":
+        idx = _np(idx)
+        words = idx[(7 * jj) % idx.shape[0]].reshape(n, WARPS, 32)
+        rows = ((words >= 0) & (words < LANE)).any(2).sum(0)
+        return [int(r) * INSTR_PER_GATHER_STEP + n * INSTR_PER_ROW_STORE * store_dyn for r in rows]
+    raise ValueError(f"no issue count for {kernel}")
+
+
+def issue_bound_ms(instr: List[int]) -> float:
+    """The issue-rate bound: the busiest warp's instructions over one
+    scheduler's rate."""
+    return _timing.issue_ms(max(instr))
+
+
 def _gathers(rel: torch.Tensor, steps: int) -> int:
     """Lane-steps r < ``steps`` whose gather falls in the window: the adds
     the function needs, over 14."""
@@ -231,10 +305,15 @@ WIN_BYTES = C * WIN_ROWS * LANE * 4
 OUT_BYTES = C * LANE * 4
 
 
-def _timed(kernel, label, fn, nbytes, ops, reps=5) -> _timing.Timed:
+def _timed(kernel, label, fn, nbytes, ops, instr, reps=5) -> _timing.Timed:
+    """Mean ms of ``reps`` launches with the card bound of (``nbytes``,
+    ``ops``) and the issue-rate bound of ``instr``; raises on a time under
+    the issue-rate bound."""
     ms = _timing.events_ms(fn, reps)
     b_ms, by = _timing.bound(nbytes, ops)
-    return _timing.Timed(kernel, label, ms, b_ms, by, one_block=True)
+    issue = issue_bound_ms(instr)
+    _timing.at_least_bound(ms, issue, f"{kernel} {label} (issue rate)")
+    return _timing.Timed(kernel, label, ms, b_ms, by, one_block=True, issue_bound_ms=issue)
 
 
 def _equal(got, want, what: str) -> None:
@@ -244,12 +323,42 @@ def _equal(got, want, what: str) -> None:
             raise AssertionError(f"{what}: kernel != plain version")
 
 
+def launch_shape() -> dict:
+    """The kernels' launch shape from the library: threads a block, P8's and
+    P9's dynamic shared memory, and P9's index rows in flight."""
+    shape = (ctypes.c_int * 4)()
+    _build.check(_build.load().atray_probe_route_shape(shape), "atray_probe_route_shape")
+    return {"threads": shape[0], "nested_smem": shape[1], "bigread_smem": shape[2],
+            "depth": shape[3]}
+
+
+def resources(kernel: str) -> str:
+    """Threads, shared memory and ptxas's registers and spills of the
+    instance that phase 14 reports: P8 with the store and the carries, P9
+    with the store."""
+    shape = launch_shape()
+    if kernel == "probe_route_nested":
+        smem, entry = shape["nested_smem"], "probe_route_nested_kernelILb1ELb1EE"
+    else:
+        smem, entry = shape["bigread_smem"], "probe_route_bigread_kernelILb1EE"
+    extra = f", {shape['depth']} index rows in flight" if kernel == "probe_route_bigread" else ""
+    return (f"{shape['threads']} threads, {smem} B shared memory{extra}, ptxas "
+            f"{_timing.ptxas(entry)}")
+
+
+NESTED_CHECK_ROWS = (0, 1, 2, 7, 8, OUTER_ROWS)
+NESTED_CHECK_INNER = (1, 3, 7)
+
+
 def check(dev: torch.device, out=print) -> dict:
-    """Each kernel equal to its plain version at the script's shapes and
-    trip counts (every step adds one selected term in the plain version's
-    order): every loop variant, the dynamic row, the nested rows (each flag,
-    also with rel below 136 so that their short loops gather; carries
-    included) and the big read (each flag, slab included)."""
+    """Each kernel equal to its plain version (every step adds one selected
+    term in the plain version's order): every loop variant and the dynamic
+    row at the script's trip counts; the nested rows at 0, 1, 2, 7, 8 and
+    the script's rows, inner 1, 3 and 7, each flag, with the script's rel
+    and with rel below 136 so that their short loops gather (carries
+    included); the big read at 0, 1, D - 1, D, D + 1 and the script's rows,
+    D the rows in flight, on the script's table and on one of 5 rows (so
+    that (7 jj) % rows wraps inside the queue), each flag, slab included."""
     win, rel = inputs(dev)
     for variant, unroll in LOOP_CASES:
         n = trips(dev, STEPS // unroll)
@@ -257,45 +366,63 @@ def check(dev: torch.device, out=print) -> dict:
                route_loop_ref(n, win, rel, variant, unroll), f"P6 {variant} x{unroll}")
     n = trips(dev, STEPS)
     _equal(route_dyn(n, win, rel), route_dyn_ref(n, win, rel), "P7")
-    n = trips(dev, OUTER_ROWS)
     for r in (rel, torch.remainder(rel, 136)):
-        for ws in (False, True):
-            for c6 in (False, True):
-                _equal(route_nested(n, win, r, 7, ws, c6), route_nested_ref(n, win, r, 7, ws, c6),
-                       f"P8 when_store={ws} carry6={c6}")
-    idx = bigread_idx(dev)
-    for sd in (False, True):
-        _equal(route_bigread(n, idx, win, sd), route_bigread_ref(n, idx, win, sd),
-               f"P9 store_dyn={sd}")
-    out(f"probe_r20 check: P6 {len(LOOP_CASES)} variants at {STEPS} steps, P7 at {STEPS}, P8 "
-        f"and P9 at {OUTER_ROWS} rows, every flag: kernel == plain version (bit-equal)")
+        for rows in NESTED_CHECK_ROWS:
+            n = trips(dev, rows)
+            for inner in NESTED_CHECK_INNER:
+                for ws in (False, True):
+                    for c6 in (False, True):
+                        _equal(route_nested(n, win, r, inner, ws, c6),
+                               route_nested_ref(n, win, r, inner, ws, c6),
+                               f"P8 rows={rows} inner={inner} when_store={ws} carry6={c6}")
+    depth = launch_shape()["depth"]
+    big_rows = (0, 1, depth - 1, depth, depth + 1, OUTER_ROWS)
+    for idx in (bigread_idx(dev), bigread_idx(dev, rows=5)):
+        for rows in big_rows:
+            n = trips(dev, rows)
+            for sd in (False, True):
+                _equal(route_bigread(n, idx, win, sd), route_bigread_ref(n, idx, win, sd),
+                       f"P9 idx rows={idx.shape[0]} rows={rows} store_dyn={sd}")
+    out(f"probe_r20 check: P6 {len(LOOP_CASES)} variants at {STEPS} steps, P7 at {STEPS}; P8 at "
+        f"rows {NESTED_CHECK_ROWS}, inner {NESTED_CHECK_INNER}, both rel sets; P9 at rows "
+        f"{big_rows} ({depth} in flight), idx of {IDX_ROWS} and 5 rows; every flag: kernel == "
+        f"plain version (bit-equal)")
     return {k: 0.0 for k in ("probe_route_loop", "probe_route_dyn", "probe_route_nested",
                              "probe_route_bigread")}
 
 
 def table(dev: torch.device, out=print) -> List[_timing.Timed]:
-    """The script's measurements on the card, each with its bound: the loop
+    """The script's measurements on the card, each with its bounds: the loop
     variants (ms, ns per step and per trip), the dynamic-row step, the
     nested rows (inner 7, each store and carry flag), the big read (each
-    store flag). Operations counted are the adds the function needs."""
+    store flag). The card bound counts the adds the function needs; the
+    issue-rate bound the busiest warp's instructions (``issue_instr``), and
+    a time under it raises."""
     win, rel = inputs(dev)
     res = []
     io = WIN_BYTES + LANE * 4 + OUT_BYTES
+
+    def busiest(instr):
+        return f"busiest warp {max(instr)} instructions"
+
     for variant, unroll in LOOP_CASES:
         n = trips(dev, STEPS // unroll)
         adds = {"empty": 0, "iota": STEPS * C * LANE, "dot": STEPS * C * LANE,
                 "build+dot": _gathers(rel, STEPS) * C}[variant]
+        instr = issue_instr("probe_route_loop", STEPS // unroll, rel, variant=variant,
+                            unroll=unroll)
         t = _timed("probe_route_loop", f"{variant} x{unroll}",
-                   lambda n=n, v=variant, u=unroll: route_loop(n, win, rel, v, u), io, adds)
+                   lambda n=n, v=variant, u=unroll: route_loop(n, win, rel, v, u), io, adds, instr)
         out(f"probe_r20 {variant:10s} x{unroll}: {t.ms:8.3f} ms total, "
             f"{t.ms * 1e6 / STEPS:8.1f} ns per STEP, {t.ms * 1e6 / (STEPS // unroll):8.1f} ns per "
-            f"ITERATION ({t.bound_text()})")
+            f"ITERATION ({t.bound_text()}; {busiest(instr)})")
         res.append(t)
     n = trips(dev, STEPS)
+    instr = issue_instr("probe_route_dyn", STEPS, rel)
     t = _timed("probe_route_dyn", "dyn", lambda: route_dyn(n, win, rel), io,
-               _gathers(rel, STEPS) * C)
+               _gathers(rel, STEPS) * C, instr)
     out(f"probe_r20 dyn-read+build+dot x1: {t.ms * 1e6 / STEPS:8.1f} ns per step ({t.ms:.4f} ms; "
-        f"{t.bound_text()})")
+        f"{t.bound_text()}; {busiest(instr)})")
     res.append(t)
     n = trips(dev, OUTER_ROWS)
     inner = 7
@@ -303,21 +430,25 @@ def table(dev: torch.device, out=print) -> List[_timing.Timed]:
     for ws in (False, True):
         for c6 in (False, True):
             label = f"inner<={inner} when_store={int(ws)} carry6={int(c6)}"
+            instr = issue_instr("probe_route_nested", OUTER_ROWS, rel, inner=inner, when_store=ws,
+                                carry6=c6)
             t = _timed("probe_route_nested", label,
                        lambda ws=ws, c6=c6: route_nested(n, win, rel, inner, ws, c6), io,
-                       gathers * C)
+                       gathers * C, instr)
             out(f"probe_r20 nested {label}: "
                 f"{t.ms:7.3f} ms = {t.ms * 1e6 / OUTER_ROWS:8.1f} ns per OUTER row "
-                f"({t.bound_text()})")
+                f"({t.bound_text()}; {busiest(instr)})")
             res.append(t)
     idx = bigread_idx(dev)
     for sd in (False, True):
         slab_rows = len({(jj % 2, (13 * jj) % SLAB_ROWS) for jj in range(OUTER_ROWS)}) if sd else 0
         nbytes = WIN_BYTES + OUTER_ROWS * LANE * 4 + OUT_BYTES + slab_rows * C * LANE * 4
+        instr = issue_instr("probe_route_bigread", OUTER_ROWS, idx=idx, store_dyn=sd)
         t = _timed("probe_route_bigread", f"store_dyn={int(sd)}",
-                   lambda sd=sd: route_bigread(n, idx, win, sd), nbytes, OUTER_ROWS * LANE * C)
+                   lambda sd=sd: route_bigread(n, idx, win, sd), nbytes, OUTER_ROWS * LANE * C,
+                   instr)
         out(f"probe_r20 bigread store_dyn={int(sd)}: {t.ms:7.3f} ms = "
-            f"{t.ms * 1e6 / OUTER_ROWS:8.1f} ns per row ({t.bound_text()})")
+            f"{t.ms * 1e6 / OUTER_ROWS:8.1f} ns per row ({t.bound_text()}; {busiest(instr)})")
         res.append(t)
     return res
 

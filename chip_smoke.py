@@ -146,12 +146,16 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     float32 products within rtol 1e-5, atol 1e-5 x reps at reps 0, 1 and
     64 (P1, P2 at M = 14 and 16) or 8 (P4, P5, also on a dense normal b
     within ``probe_r19.dense_tolerance``), everything else equal; the route probes
-    at the scripts' trip counts, the takes at 2,073,600 lanes x 14 planes on
+    at the scripts' trip counts, P8 also at 0, 1, 2, 7 and 8 rows and inner
+    1, 3 and 7, P9 at 0, 1 and around its index rows in flight and on a
+    5-row index table, each flag; the takes at 2,073,600 lanes x 14 planes on
     the maps of every occupancy and a scattered one); then, counted, each
     probe's table at the script's shapes and reps, every line with its bound
-    on the card and (for the one-block kernels P1-P9) on one SM, P1's-P5's
-    also with the time over the one-SM bound (a time under it fails), the
-    block's threads and shared memory and ptxas's registers and spills, P11's
+    on the card and, for the one-block kernels, on one SM (P1-P5) or at one
+    scheduler's issue rate (P6-P9: the busiest warp's instructions,
+    ``probe_r20.issue_instr``), with the time over it (a time under it
+    fails); P1-P5, P8 and P9 with the block's threads and shared memory and
+    ptxas's registers and spills, P11's
     with its resources and a second bound from the bytes its design moves
     (staged rows, index, output); then the plain version's and the library
     call's time (``torch.matmul`` for P1-P5, ``index_select`` for P10-P11:
@@ -2194,6 +2198,8 @@ def phase_probes(dev, gpu):
         elif name == "probe_stream_take":
             shape = (f", {t.ms / design[0]:.3f}x the design's bound {design[0]:.6g} ms "
                      f"(staged rows, index, output), {probe_r22.resources()}")
+        elif name in ("probe_route_nested", "probe_route_bigread"):
+            shape = f", {probe_r20.resources(name)}"
         say(f"{name} {t.label}: kernel {t.ms:.4f} ms, {t.bound_text()}, plain {plain_ms:.4f} ms, "
             f"library {lib}, {res[name]['launches']} launches in the probes' run{shape}")
     print(f"phase 14 probes: checks {t_check:.1f} s, tables {t_table:.1f} s, all "
@@ -2207,8 +2213,9 @@ def _entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_m
     ``plain_ms``), since their timed set is cut, and ``warp_bound_ms``
     (the bound from the warp's own work); the
     probes add the ``variant`` timed and, for one-block kernels,
-    ``one_sm_bound_ms``, P11 ``design_bound_ms`` (the bytes its design
-    moves)."""
+    ``one_sm_bound_ms`` (P1-P5) or ``issue_bound_ms`` (P6-P9: the busiest
+    warp's instructions over one scheduler's issue rate), P11
+    ``design_bound_ms`` (the bytes its design moves)."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms, **rays}
@@ -2311,7 +2318,9 @@ def main() -> int:
                probes[name]["err"], probes[name]["t"].ms, probes[name]["plain_ms"],
                (probes[name]["t"].bound_ms, probes[name]["t"].bound_by),
                probes[name]["library_ms"], variant=probes[name]["t"].label,
-               **({"one_sm_bound_ms": probes[name]["t"].bound_ms * 132}
+               **({"issue_bound_ms": probes[name]["t"].issue_bound_ms}
+                  if probes[name]["t"].issue_bound_ms is not None else
+                  {"one_sm_bound_ms": probes[name]["t"].bound_ms * 132}
                   if probes[name]["t"].one_block else {}),
                **({"design_bound_ms": probes[name]["design_bound"][0]}
                   if "design_bound" in probes[name] else {}))

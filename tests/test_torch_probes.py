@@ -148,16 +148,16 @@ def case_p7(rng):
     assert np.count_nonzero(ref) > 1000
 
 
-def case_p8(rng):
+def case_p8(rng, cases=((40, False), (43, True)), inner=7):
     # rel within a few lanes of 0 so that the rows' short loops gather
     win, rel = _route_inputs(rng, rel_hi=136)
-    for rows, carry6 in ((40, False), (43, True)):
+    for rows, carry6 in cases:
         n = np.asarray([rows], np.int32)
-        kern = functools.partial(_script("probe_r20")["_kern_nested"], inner=7, when_store=True,
-                                 carry6=carry6)
+        kern = functools.partial(_script("probe_r20")["_kern_nested"], inner=inner,
+                                 when_store=True, carry6=carry6)
         ref = _call(kern, F32((C, LANE), jnp.float32), jnp.asarray(n), jnp.asarray(win),
                     jnp.asarray(rel), in_specs=SMEM_VMEM)
-        got, carry = probe_r20.route_nested(_t(n), _t(win), _t(rel[0]), 7, True, carry6)
+        got, carry = probe_r20.route_nested(_t(n), _t(win), _t(rel[0]), inner, True, carry6)
         np.testing.assert_array_equal(got.numpy(), ref)
         assert np.count_nonzero(ref) > 100
         if carry6:
@@ -217,11 +217,90 @@ def case_p11(rng):
 CASES = {f"P{i}": fn for i, fn in enumerate(
     (case_p1, case_p2, case_p3, case_p4, case_p5, case_p6, case_p7, case_p8, case_p9, case_p10,
      case_p11), start=1)}
+# P8 at one and two rows (an even and an odd last row) and at inner 3
+CASES.update({
+    "P8 rows=1": functools.partial(case_p8, cases=((1, False), (1, True))),
+    "P8 rows=2": functools.partial(case_p8, cases=((2, False), (2, True))),
+    "P8 inner=3": functools.partial(case_p8, inner=3),
+})
 
 
 @pytest.mark.parametrize("row", list(CASES))
 def test_plain_version_matches_tpu_probe_kernel(row):
-    CASES[row](np.random.default_rng(int(row[1:])))
+    CASES[row](np.random.default_rng(int(row[1:].split()[0])))
+
+
+def _warp0_rel(warp0):
+    """rel (128,) with warp 0's first lanes at ``warp0`` and every other lane
+    at 10,000, where no step below 9,873 gathers."""
+    rel = np.full(LANE, 10_000, np.int32)
+    rel[:len(warp0)] = warp0
+    return _t(rel)
+
+
+def _loop_hand_count():
+    # lane 0 gathers at steps 0..5, lane 1 at 173..300: 134 of 400 steps
+    rel = _warp0_rel([5, 300])
+    for variant, per_warp in (("build+dot", [134 * 14, 0, 0, 0]), ("iota", [400] * 4),
+                              ("dot", [400 * 14] * 4), ("empty", [0] * 4)):
+        assert probe_r20.issue_instr("probe_route_loop", 100, rel, variant=variant,
+                                     unroll=4) == per_warp, variant
+    assert probe_r20.issue_instr("probe_route_dyn", 400, rel) == [134 * 14, 0, 0, 0]
+
+
+def _nested_hand_count():
+    # lane 0 gathers at steps 0..2, so a row of q steps gathers on min(q, 3);
+    # inner 7: q = 1..7 by jj % 7
+    rel = _warp0_rel([2])
+    for rows, gathered, odd in ((8, 19, 4), (9, 21, 4)):         # last row odd, even
+        for ws in (False, True):
+            for c6 in (False, True):
+                want = 14 * gathered + ws * (14 * rows + 14 * odd) + c6 * 6 * rows
+                got = probe_r20.issue_instr("probe_route_nested", rows, rel, inner=7,
+                                            when_store=ws, carry6=c6)
+                assert got == [want] + [ws * (14 * rows + 14 * odd) + c6 * 6 * rows] * 3
+    # inner 3: q = 1, 2, 3, 3, 3, 3, 3, 1, 2 on nine rows
+    assert probe_r20.issue_instr("probe_route_nested", 9, rel, inner=3)[0] == 14 * 21
+    assert probe_r20.issue_instr("probe_route_nested", 0, rel, when_store=True) == [0] * 4
+
+
+def _bigread_hand_count():
+    # rows (7 jj) % 3 = 0, 1, 2, 0, 1: row 0 gathers nowhere, row 1 in warp 1
+    # (lane 40), row 2 in every warp
+    idx = np.full((3, LANE), 200, np.int32)
+    idx[1, 40] = 7
+    idx[2] = 5
+    for sd in (False, True):
+        got = probe_r20.issue_instr("probe_route_bigread", 5, idx=_t(idx), store_dyn=sd)
+        assert got == [14 + 70 * sd, 42 + 70 * sd, 14 + 70 * sd, 14 + 70 * sd]
+
+
+def _bound_hand_count():
+    # the busiest warp's count over one scheduler's rate, 33.5e12 / (132 x 4 x 32)
+    instr = [100, 2_000_000, 5, 0]
+    assert probe_r20.issue_bound_ms(instr) == pytest.approx(
+        2_000_000 / (33.5e12 / 16_896) * 1e3, rel=1e-12)
+    assert probe_r20.issue_bound_ms([0] * 4) == 0.0
+    win, rel = probe_r20.inputs("cpu")
+    # the script's nested rows with the store and the carries: 83 a row
+    assert max(probe_r20.issue_instr("probe_route_nested", probe_r20.OUTER_ROWS, rel,
+                                     when_store=True, carry6=True)) == 83 * probe_r20.OUTER_ROWS
+
+
+@pytest.mark.parametrize("count", [_loop_hand_count, _nested_hand_count, _bigread_hand_count,
+                                   _bound_hand_count], ids=["loop", "nested", "bigread", "bound"])
+def test_issue_instr_matches_a_hand_count(count):
+    count()
+
+
+def test_a_time_under_its_issue_rate_bound_raises():
+    from atray_tpu_torch.probes import _timing
+    with pytest.raises(AssertionError, match="under its bound"):
+        _timing.at_least_bound(0.099, 0.1, "P8")
+    assert _timing.at_least_bound(0.3, 0.1, "P8") == pytest.approx(3.0)
+    assert _timing.at_least_bound(0.01, 0.0, "P6 empty") == float("inf")
+    t = _timing.Timed("probe_route_nested", "x", 0.3, 1e-5, "bytes", True, issue_bound_ms=0.1)
+    assert "issue rate, 3.000x" in t.bound_text() and "one SM" not in t.bound_text()
 
 
 @pytest.mark.parametrize("reps", [0, 1])
