@@ -18,25 +18,30 @@
 // product is a gather: acc[c, l] += blk[c, rel[l] - r] where
 // 0 <= rel[l] - r < 128, else nothing. A GPU lane gathers, so these kernels
 // compute that function directly (the "build" is each lane's range test,
-// the "dot" its 14 loads and adds), with the plain versions' op order: one
-// selected term added per step, so the sums are exact against them.
+// the "dot" its 14 loads and adds), with the plain versions' op order, so
+// the sums are exact against them.
 //
 // Launch shape: one block of 128 threads, thread l owning lane l and the 14
-// sums in registers; win (14, 16, 128) f32 = 114,688 B sits in shared memory
-// (what the TPU kept in VMEM), and so does P8's (14, 128) out block (7,168
-// B more) when it stores; P9's idx table (8.3 MB) and slab (6.45 MB) stay
-// in device memory, the next rows' index words in flight. The step count n
-// is read from device memory inside the kernel, as the TPU read it from
-// SMEM, so the compiler cannot unroll the loop by a known count. Where the
-// TPU kernel's output is undefined (P8 without when_store) the sums are
-// kept live by an empty asm and never stored; P8's six carries are written
-// to carry_out so that they are computed at all.
+// sums in registers. The step count n is read from device memory inside
+// the kernel, as the TPU read it from SMEM, so the compiler cannot unroll
+// the loop by a known count. P6 empty stages the (14, 16, 128) f32 window,
+// 114,688 B, into shared memory (what the TPU kept in VMEM) and walks its
+// trips; iota and dot read no staged window. P6 build+dot and P7 add a lane's
+// at most 128 terms in a walk over the window columns (routed_walk), from
+// row 0 staged alone (7,168 B) or from the whole window staged column by
+// column. P8 stages the window and its (14, 128) out block (7,168 B more)
+// when it stores; P9's idx table (8.3 MB) and slab (6.45 MB) stay in device
+// memory, the next rows' index words in flight. Where the TPU kernel's
+// output is undefined (P8 without when_store) the sums are kept live by an
+// empty asm and never stored; P8's six carries are written to carry_out so
+// that they are computed at all.
 //
 // What bounds it: one warp scheduler's issue rate over a loop-carried
 // chain. probe_r20.issue_instr counts the instructions the function needs
-// on the busiest of the four warps (the adds of distinct sums, the stores,
-// the carries); the card bound (operations over 67 TFLOP/s, or the bytes)
-// is reported beside it.
+// on the busiest of the four warps (the adds of distinct sums: 14 for each
+// term of the warp's busiest lane, since one instruction serves all 32
+// lanes; the stores, the carries); the card bound (operations over 67
+// TFLOP/s, or the bytes) is reported beside it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,7 +67,7 @@ __device__ __forceinline__ float win_at(const float* win_s, int c, int row, int 
     return win_s[(c * kRows + row) * kLane + k];
 }
 
-// acc[c] += win[c, row, rel - r] where 0 <= rel - r < 128.
+// acc[c] += win[c, row, rel - r] where 0 <= rel - r < 128 (P9's row step).
 __device__ __forceinline__ void routed_step(const float* win_s, int row, int k, float (&acc)[kC]) {
     if ((unsigned)k < (unsigned)kLane) {
 #pragma unroll
@@ -70,24 +75,116 @@ __device__ __forceinline__ void routed_step(const float* win_s, int row, int k, 
     }
 }
 
-template <int V>
-__device__ __forceinline__ void loop_step(const float* win_s, int r, int rl, int l,
-                                          float (&acc)[kC]) {
-    if constexpr (V == kEmpty) {
-        asm volatile("");
-    } else if constexpr (V == kIota) {
-        // row 0 of the one-hot, times 0, plus 1
-        const float oh = (r == rl) ? 1.0f : 0.0f;
-        const float t = __fadd_rn(__fmul_rn(oh, 0.0f), 1.0f);
+// P6 build+dot's window: row 0 alone as [c][k], 16-byte loads, all in flight.
+constexpr int kRow0Floats = kC * kLane;
+
+__device__ __forceinline__ void stage_row0(const float* __restrict__ win, float* row0_s) {
+    constexpr int kQuads = kRow0Floats / 4;                       // 448
+    constexpr int kPer = (kQuads + kLane - 1) / kLane;            // 4
+    float4 v[kPer];
 #pragma unroll
-        for (int c = 0; c < kC; ++c) acc[c] = __fadd_rn(acc[c], t);
-    } else if constexpr (V == kDot) {
-        // the product with the identity: each lane adds its own column
-#pragma unroll
-        for (int c = 0; c < kC; ++c) acc[c] = __fadd_rn(acc[c], win_at(win_s, c, 0, l));
-    } else {
-        routed_step(win_s, 0, rl - r, acc);
+    for (int j = 0; j < kPer; ++j) {
+        const int i = threadIdx.x + j * kLane;
+        if (i < kQuads)
+            v[j] = *reinterpret_cast<const float4*>(win + (i >> 5) * kRows * kLane + 4 * (i & 31));
     }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+        const int i = threadIdx.x + j * kLane;
+        if (i < kQuads) reinterpret_cast<float4*>(row0_s)[i] = v[j];
+    }
+    __syncthreads();
+}
+
+// P7's window as [c][k][row], row fastest: the at most 16 rows that a warp
+// reads at one column k lie in 16 banks, (16 k + row) % 32. A warp moves a
+// group of two 16-byte column quads of one channel, lane = row + 16 x
+// quad's parity, 8 groups (32 registers) in flight a batch; its scalar
+// stores meet two lanes a bank.
+__device__ __forceinline__ void stage_win_krow(const float* __restrict__ win, float* win_s) {
+    constexpr int kGroups = kC * kLane / 8;                       // 224: (c, pair of quads)
+    constexpr int kPerWarp = kGroups / (kLane / 32);              // 56
+    constexpr int kBatch = 8;
+    const int lane = threadIdx.x & 31;
+    const int row = lane & (kRows - 1);
+    const int g_end = (threadIdx.x >> 5) * kPerWarp + kPerWarp;
+    for (int g0 = g_end - kPerWarp; g0 < g_end; g0 += kBatch) {
+        float4 v[kBatch];
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+            const int g = g0 + b, c = g >> 4, q = ((g & 15) << 1) | (lane >> 4);
+            v[b] = *reinterpret_cast<const float4*>(win + (c * kRows + row) * kLane + 4 * q);
+        }
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+            const int g = g0 + b, c = g >> 4, q = ((g & 15) << 1) | (lane >> 4);
+            float* dst = win_s + (c * kLane + 4 * q) * kRows + row;
+            dst[0] = v[b].x;
+            dst[kRows] = v[b].y;
+            dst[2 * kRows] = v[b].z;
+            dst[3 * kRows] = v[b].w;
+        }
+    }
+    __syncthreads();
+}
+
+// P6 build+dot (DYN false, row 0 as [c][k]) and P7 (DYN true, [c][k][row]).
+// Lane l adds win[c, row(r), rel - r] for the steps r < steps with
+// 0 <= rel - r < 128, in increasing r: k = rel - r from khi = min(rel, 127)
+// down to klo = max(rel - steps + 1, 0), at most 128 terms. The warp walks
+// k from its lanes' largest khi down to their smallest klo; at a k outside
+// its own range a lane adds +0.0, as the plain version does: a sum that
+// starts at +0.0 never becomes -0.0 under round-to-nearest, so adding +0.0
+// leaves its bits as they are. Every column's loads are in the window, and
+// the select keeps the walk free of branches, so ptxas keeps the loads of
+// the unrolled columns in flight together (with `if (ok)` it put each
+// column's loads and adds behind a branch: 10.8 us against 7.9 for P6 on
+// the H100, 18.2 against 12.4 for P7).
+template <bool DYN>
+__device__ __forceinline__ void routed_walk(const float* win_s, int rl, long long steps,
+                                            float (&acc)[kC]) {
+    constexpr int kStride = DYN ? kLane * kRows : kLane;          // one channel to the next
+    const int khi = min(rl, kLane - 1);
+    const int klo = (int)min(max((long long)rl - steps + 1, 0LL), (long long)kLane);
+    const bool any = klo <= khi;
+    const int kmax = __reduce_max_sync(0xffffffffu, any ? khi : -1);
+    const int kmin = __reduce_min_sync(0xffffffffu, any ? klo : kLane);
+#pragma unroll 4
+    for (int k = kmax; k >= kmin; --k) {
+        const bool ok = klo <= k && k <= khi;
+        const float* w =
+            DYN ? win_s + k * kRows + (((unsigned)rl - (unsigned)k) & (kRows - 1)) : win_s + k;
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+            const float v = w[c * kStride];
+            acc[c] = __fadd_rn(acc[c], ok ? v : 0.0f);
+        }
+    }
+}
+
+// P6 iota: its 14 sums are equal, so one sum of 1.0 a step serves them all,
+// in kIotaChains partial chains (exact integers below 2^24, the plain
+// version's limit, so their sum has the bits of one chain's), 128 steps a
+// trip.
+constexpr int kIotaChains = 8;
+
+__device__ __forceinline__ float iota_sum(long long steps) {
+    float part[kIotaChains];
+#pragma unroll
+    for (int p = 0; p < kIotaChains; ++p) part[p] = 0.0f;
+    long long s = 0;
+#pragma unroll 16
+    for (; s + kIotaChains <= steps; s += kIotaChains) {
+#pragma unroll
+        for (int p = 0; p < kIotaChains; ++p) part[p] = __fadd_rn(part[p], 1.0f);
+    }
+    for (; s < steps; ++s) part[0] = __fadd_rn(part[0], 1.0f);
+#pragma unroll
+    for (int w = kIotaChains / 2; w > 0; w /= 2) {
+#pragma unroll
+        for (int p = 0; p < w; ++p) part[p] = __fadd_rn(part[p], part[p + w]);
+    }
+    return part[0];
 }
 
 template <int V, int UNROLL>
@@ -95,16 +192,38 @@ __global__ void __launch_bounds__(kLane)
     probe_route_loop_kernel(const int* __restrict__ n_ptr, const float* __restrict__ win,
                             const int* __restrict__ rel, float* __restrict__ out) {
     extern __shared__ __align__(16) float loop_win_s[];
-    stage_win(win, loop_win_s);
     const int l = threadIdx.x;
-    const int rl = rel[l];
-    const int n = *n_ptr;
     float acc[kC];
 #pragma unroll
     for (int c = 0; c < kC; ++c) acc[c] = 0.0f;
-    for (int i = 0; i < n; ++i) {
+    if constexpr (V == kEmpty) {
+        // n trips of UNROLL empty steps: the trips are what it prices
+        stage_win(win, loop_win_s);
+        const int n = *n_ptr;
+        for (int i = 0; i < n; ++i) {
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) loop_step<V>(loop_win_s, i * UNROLL + u, rl, l, acc);
+            for (int u = 0; u < UNROLL; ++u) asm volatile("");
+        }
+    } else if constexpr (V == kIota) {
+        const float t = iota_sum((long long)*n_ptr * UNROLL);
+#pragma unroll
+        for (int c = 0; c < kC; ++c) acc[c] = t;
+    } else if constexpr (V == kDot) {
+        // the product with the identity: each lane adds its own word of
+        // row 0 every step, in step order; the words stay in registers, 16
+        // steps a trip (4 cost 17% more on the H100)
+        float w[kC];
+#pragma unroll
+        for (int c = 0; c < kC; ++c) w[c] = win[c * kRows * kLane + l];
+        const long long steps = (long long)*n_ptr * UNROLL;
+#pragma unroll 16
+        for (long long s = 0; s < steps; ++s) {
+#pragma unroll
+            for (int c = 0; c < kC; ++c) acc[c] = __fadd_rn(acc[c], w[c]);
+        }
+    } else {
+        stage_row0(win, loop_win_s);
+        routed_walk<false>(loop_win_s, rel[l], (long long)*n_ptr * UNROLL, acc);
     }
 #pragma unroll
     for (int c = 0; c < kC; ++c) out[c * kLane + l] = acc[c];
@@ -114,14 +233,12 @@ __global__ void __launch_bounds__(kLane)
     probe_route_dyn_kernel(const int* __restrict__ n_ptr, const float* __restrict__ win,
                            const int* __restrict__ rel, float* __restrict__ out) {
     extern __shared__ __align__(16) float dyn_win_s[];
-    stage_win(win, dyn_win_s);
+    stage_win_krow(win, dyn_win_s);
     const int l = threadIdx.x;
-    const int rl = rel[l];
-    const int n = *n_ptr;
     float acc[kC];
 #pragma unroll
     for (int c = 0; c < kC; ++c) acc[c] = 0.0f;
-    for (int r = 0; r < n; ++r) routed_step(dyn_win_s, r & (kRows - 1), rl - r, acc);
+    routed_walk<true>(dyn_win_s, rel[l], *n_ptr, acc);
 #pragma unroll
     for (int c = 0; c < kC; ++c) out[c * kLane + l] = acc[c];
 }
@@ -365,13 +482,23 @@ int launch_nested(Kernel kernel, cudaStream_t stream, Args... args) {
     return launch_block(kernel, kLane, kNestedBytes, stream, args...);
 }
 
+constexpr int kRow0Bytes = kRow0Floats * 4;
+
+// A P6 variant's dynamic shared memory: empty stages the window, build+dot
+// row 0, iota and dot nothing.
+constexpr int loop_smem(int v) { return v == kEmpty ? kWinBytes : v == kBuildDot ? kRow0Bytes : 0; }
+
+// P6 build+dot and P7 stage win by 16-byte loads.
+bool quad_aligned(const float* p) { return ((uintptr_t)p & 15) == 0; }
+
 template <int V>
 int launch_loop(int unroll, cudaStream_t s, const int* n, const float* win, const int* rel,
                 float* out) {
+    constexpr int m = loop_smem(V);
     switch (unroll) {
-        case 1: return launch_one(probe_route_loop_kernel<V, 1>, s, n, win, rel, out);
-        case 4: return launch_one(probe_route_loop_kernel<V, 4>, s, n, win, rel, out);
-        case 8: return launch_one(probe_route_loop_kernel<V, 8>, s, n, win, rel, out);
+        case 1: return launch_block(probe_route_loop_kernel<V, 1>, kLane, m, s, n, win, rel, out);
+        case 4: return launch_block(probe_route_loop_kernel<V, 4>, kLane, m, s, n, win, rel, out);
+        case 8: return launch_block(probe_route_loop_kernel<V, 8>, kLane, m, s, n, win, rel, out);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -380,12 +507,14 @@ int launch_loop(int unroll, cudaStream_t s, const int* n, const float* win, cons
 
 // Each launcher runs one block on ``stream`` and returns cudaGetLastError()
 // of the launch. n_ptr is a device int (the trip count); win is (14, 16, 128)
-// f32, rel (128,) i32, out (14, 128) f32.
+// f32, rel (128,) i32, out (14, 128) f32; P6 build+dot and P7 return
+// cudaErrorMisalignedAddress unless win starts on a 16-byte boundary.
 
 // P6: variant 0 empty, 1 iota, 2 dot, 3 build+dot; unroll 1, 4 or 8 steps a trip.
 extern "C" int atray_probe_route_loop(const int* n_ptr, const float* win, const int* rel,
                                       float* out, int variant, int unroll, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
+    if (variant == kBuildDot && !quad_aligned(win)) return (int)cudaErrorMisalignedAddress;
     switch (variant) {
         case kEmpty: return launch_loop<kEmpty>(unroll, s, n_ptr, win, rel, out);
         case kIota: return launch_loop<kIota>(unroll, s, n_ptr, win, rel, out);
@@ -398,6 +527,7 @@ extern "C" int atray_probe_route_loop(const int* n_ptr, const float* win, const 
 // P7.
 extern "C" int atray_probe_route_dyn(const int* n_ptr, const float* win, const int* rel,
                                      float* out, void* stream) {
+    if (!quad_aligned(win)) return (int)cudaErrorMisalignedAddress;
     return launch_one(probe_route_dyn_kernel, (cudaStream_t)stream, n_ptr, win, rel, out);
 }
 
@@ -435,11 +565,14 @@ extern "C" int atray_probe_route_bigread(const int* n_ptr, const int* idx, int i
 
 // Launch shapes: out[0] threads a block, out[1] P8's dynamic shared memory
 // with when_store (window and out tile; the window alone without), out[2]
-// P9's, out[3] P9's index rows in flight.
+// P9's, out[3] P9's index rows in flight, out[4] P6 build+dot's (row 0),
+// out[5] P7's (the window).
 extern "C" int atray_probe_route_shape(int* out) {
     out[0] = kLane;
     out[1] = kNestedBytes;
     out[2] = kBigreadBytes;
     out[3] = kDepth;
+    out[4] = kRow0Bytes;
+    out[5] = kWinBytes;
     return 0;
 }

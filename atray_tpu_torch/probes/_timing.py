@@ -55,6 +55,41 @@ def events_ms(fn: Callable[[], object], reps: int = 1, warm: bool = True) -> flo
     return start.elapsed_time(end) / reps
 
 
+HOLD_CYCLES = 20_000_000      # the spin that holds the card while calls queue: about 10 ms
+DEVICE_REPS = 20              # calls that device_ms queues behind the spin
+HOLD_TRIES = 3
+
+
+def device_ms(fn: Callable[[], object]) -> float:
+    """Mean device ms of one of ``DEVICE_REPS`` calls of ``fn`` (after one untimed
+    call) queued behind a spin kernel, between CUDA events: the host
+    queues every call while the card spins, so the card runs them back to
+    back and the time holds none of the host's launch time, which a
+    CUDA-event mean of a short kernel holds. It is the kernels' own time
+    and the gaps between them, never less. Where the spin ended before the
+    last call was queued the try is thrown away and the spin lengthened;
+    raises after ``HOLD_TRIES``. (torch.profiler's mean of the same launches
+    once read half of a kernel's time on the H100.)"""
+    fn()
+    torch.cuda.synchronize()
+    cycles = HOLD_CYCLES
+    for _ in range(HOLD_TRIES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(DEVICE_REPS):
+            fn()
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / DEVICE_REPS
+        cycles *= 4
+    raise RuntimeError(f"device_ms: the card ran the calls before the host had queued them all, "
+                       f"{HOLD_TRIES} times")
+
+
 def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> Tuple[float, str]:
     """(least ms on the whole card, "bytes" or "operations"): the larger of
     the bytes over the memory rate and the operations over their peak."""

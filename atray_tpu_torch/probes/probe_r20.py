@@ -5,7 +5,7 @@ The TPU kernels route with the one-hot product ``blk . OH_r``,
 ``OH_r[k, l] = (k + r == rel[l])``, which is a gather:
 ``acc[c, l] += blk[c, rel[l] - r]`` where ``0 <= rel[l] - r < 128``. The
 kernels of ``csrc/probe_route.cu`` compute that function directly, one block
-of 128 lanes with the (14, 16, 128) window in shared memory:
+of 128 lanes, thread l owning lane l's 14 sums:
 
 - ``route_loop`` (P6, ``make_kern(variant, unroll).kern``): ``n`` trips of
   ``unroll`` steps on a (14, 128) sum: ``empty``; ``iota`` (+1 each step);
@@ -20,6 +20,13 @@ of 128 lanes with the (14, 16, 128) window in shared memory:
   ``store_dyn`` also writes the sum to row ``(13 jj) % 450`` of half
   ``jj % 2`` of a (2, 14, 450, 128) slab in device memory.
 
+P6 ``build+dot`` and P7 walk the window columns k = 127 ... 0 (step
+r = rel - k, so increasing r), cut to the warp's lanes' ranges: at most 128
+iterations, each lane adding only its own terms (the steps without one add
+nothing, as the plain version's +0.0), from row 0 staged alone (P6) or the
+window staged with row fastest (P7). ``iota`` sums 1.0 a step once for its
+14 equal sums, in partial chains; ``dot`` keeps each lane's 14 words in
+registers; ``empty`` stages the window and walks its trips.
 P8 keeps each lane's gathered words in registers and stores every row
 into a shared-memory out block that reaches ``out`` once, after the rows,
 as the TPU's VMEM block did; each of its rows starts from a zero the
@@ -59,7 +66,7 @@ LOOP_CASES = (("empty", 1), ("iota", 1), ("dot", 1), ("build+dot", 1), ("build+d
 WARPS = LANE // 32         # the block's warps, one to a scheduler
 # Instructions a warp must issue, counted as chip_smoke.py counts
 # INSTR_PER_TREELET: only what no compiler can remove.
-INSTR_PER_GATHER_STEP = C  # a step in which any lane of the warp gathers: one add a distinct sum
+INSTR_PER_TERM = C         # a lane's term: one add a distinct sum
 INSTR_PER_IOTA_STEP = 1    # iota: the 14 sums are equal, so one add serves them all
 INSTR_PER_DOT_STEP = C     # dot: every lane adds its own column, every step
 INSTR_PER_ROW_STORE = C    # a row's 14 sums stored (P8 with when_store, P9 with store_dyn)
@@ -241,15 +248,13 @@ def _np(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def _gather_steps(rel, steps: int) -> np.ndarray:
-    """(WARPS, steps) bool: whether any lane of the warp gathers at step r,
-    that is has 0 <= rel - r < 128."""
+def _lane_terms(rel, steps: int) -> np.ndarray:
+    """(WARPS, 32) int: each lane's terms, the steps r < ``steps`` with
+    0 <= rel - r < 128."""
     rel = _np(rel).astype(np.int64).reshape(WARPS, 32)
-    diff = np.zeros((WARPS, steps + 1), np.int64)
-    warp = np.repeat(np.arange(WARPS), 32)
-    np.add.at(diff, (warp, np.clip(rel - (LANE - 1), 0, steps).reshape(-1)), 1)
-    np.add.at(diff, (warp, np.clip(rel + 1, 0, steps).reshape(-1)), -1)
-    return np.cumsum(diff[:, :steps], 1) > 0
+    first = np.maximum(rel - (LANE - 1), 0)
+    last = np.minimum(rel, int(steps) - 1)
+    return np.maximum(last - first + 1, 0)
 
 
 def issue_instr(kernel: str, n: int, rel=None, idx=None, variant: str = "build+dot",
@@ -257,32 +262,40 @@ def issue_instr(kernel: str, n: int, rel=None, idx=None, variant: str = "build+d
                 store_dyn: bool = False) -> List[int]:
     """Instructions each of the block's warps must issue in one launch of
     ``kernel`` (a counter name, P6-P9) at trip count ``n``, on ``rel`` (P6-P8)
-    or ``idx`` (P9) and the flags: the float adds of distinct sums (14 on a
-    warp-step in which any lane of the warp gathers, ``iota`` 1 a step,
-    ``dot`` 14), P8's 14 stores a row with ``when_store`` and 14 doublings on
-    its odd rows, its 6 carry operations a row with ``carry6``, and P9's 14
-    stores a row with ``store_dyn``. A list of ``WARPS`` counts."""
+    or ``idx`` (P9) and the flags: the float adds of distinct sums, P8's 14
+    stores a row with ``when_store`` and 14 doublings on its odd rows, its 6
+    carry operations a row with ``carry6``, and P9's 14 stores a row with
+    ``store_dyn``. A list of ``WARPS`` counts.
+
+    Lane l owns its 14 sums and one warp instruction serves all 32 lanes,
+    so the routed adds (P6 ``build+dot``, P7, each P8 row, each P9 row) a
+    warp needs are 14 x the most terms any one of its lanes adds: a walk
+    over the window columns k = 127 ... 0 issues no more. 14 for every
+    step on which any lane of the warp gathers would count a schedule that
+    walks the steps, not a least count. ``iota`` needs 1 add a step (its 14
+    sums are equal), ``dot`` 14 (each adds its word every step), ``empty``
+    none."""
     n = max(int(n), 0)
     if kernel in ("probe_route_loop", "probe_route_dyn"):
         steps = n * (unroll if kernel == "probe_route_loop" else 1)
         if kernel == "probe_route_loop" and variant != "build+dot":
             per = {"empty": 0, "iota": INSTR_PER_IOTA_STEP, "dot": INSTR_PER_DOT_STEP}[variant]
             return [steps * per] * WARPS
-        return [int(c) * INSTR_PER_GATHER_STEP for c in _gather_steps(rel, steps).sum(1)]
+        return [int(t) * INSTR_PER_TERM for t in _lane_terms(rel, steps).max(1)]
     jj = np.arange(n)
     if kernel == "probe_route_nested":
-        # gathering steps r < q of each warp, q = 0..7
-        before = np.concatenate([np.zeros((WARPS, 1), np.int64),
-                                 np.cumsum(_gather_steps(rel, 7), 1)], 1)
+        # the most terms of any lane of each warp in a row of q steps, q = 0..7
+        most = np.stack([_lane_terms(rel, q).max(1) for q in range(8)], 1)
         q = np.clip(np.minimum(jj % 7 + 1, inner), 0, 7)
         per_row = INSTR_PER_ROW_STORE * when_store + INSTR_PER_CARRY_ROW * carry6
         rest = n * per_row + INSTR_PER_ODD_ROW * when_store * int((jj % 2).sum())
-        return [int(before[w, q].sum()) * INSTR_PER_GATHER_STEP + rest for w in range(WARPS)]
+        return [int(most[w, q].sum()) * INSTR_PER_TERM + rest for w in range(WARPS)]
     if kernel == "probe_route_bigread":
+        # a lane has at most one term a row
         idx = _np(idx)
         words = idx[(7 * jj) % idx.shape[0]].reshape(n, WARPS, 32)
         rows = ((words >= 0) & (words < LANE)).any(2).sum(0)
-        return [int(r) * INSTR_PER_GATHER_STEP + n * INSTR_PER_ROW_STORE * store_dyn for r in rows]
+        return [int(r) * INSTR_PER_TERM + n * INSTR_PER_ROW_STORE * store_dyn for r in rows]
     raise ValueError(f"no issue count for {kernel}")
 
 
@@ -292,13 +305,48 @@ def issue_bound_ms(instr: List[int]) -> float:
     return _timing.issue_ms(max(instr))
 
 
-def _gathers(rel: torch.Tensor, steps: int) -> int:
+def _gathers(rel, steps: int) -> int:
     """Lane-steps r < ``steps`` whose gather falls in the window: the adds
     the function needs, over 14."""
-    r = rel.long().cpu()
-    first = torch.clamp(r - (LANE - 1), min=0)
-    last = torch.clamp(r, max=steps - 1)
-    return int(torch.clamp(last - first + 1, min=0).sum())
+    return int(_lane_terms(rel, steps).sum())
+
+
+def route_masks(rel: torch.Tensor, steps: int):
+    """The 0/1 float32 matrices that make P6 ``build+dot`` and P7 one product
+    each, the library yardstick: M6 (128, 128), M6[k, l] = (0 <= rel[l] - k
+    < steps), for ``win[:, 0, :] @ M6``; M7 (2048, 128), M7[row * 128 + k, l]
+    = M6[k, l] and (rel[l] - k) % 16 == row, for ``win.reshape(14, 2048) @
+    M7``."""
+    r = rel.long().view(1, LANE) - torch.arange(LANE, device=rel.device).view(LANE, 1)
+    m6 = (r >= 0) & (r < steps)
+    row = torch.arange(WIN_ROWS, device=rel.device).view(WIN_ROWS, 1, 1)
+    m7 = (m6 & (torch.remainder(r, WIN_ROWS) == row)).reshape(WIN_ROWS * LANE, LANE)
+    return m6.float(), m7.float()
+
+
+# A float32 sum of n <= 128 terms, in any order, lies within
+# (n - 1) u / (1 - (n - 1) u) < 128 u, u = 2^-24, times the sum of their
+# magnitudes of the exact sum; the product's and the plain version's sums
+# so lie within twice that of each other.
+LIBRARY_TOL = 2 * LANE * 2.0 ** -24
+
+
+def library_calls(win: torch.Tensor, rel: torch.Tensor, steps: int) -> dict:
+    """Counter name -> the one ``torch.matmul`` call (float32, PyTorch's
+    default of no TF32) that computes P6 ``build+dot`` or P7 at ``steps``,
+    its masks built here, outside the call; each call's result is first held
+    to the plain version within ``LIBRARY_TOL`` x the sum of the terms'
+    magnitudes, else AssertionError."""
+    m6, m7 = route_masks(rel, steps)
+    row0, flat = win[:, 0, :], win.reshape(C, WIN_ROWS * LANE)
+    calls = {"probe_route_loop": (lambda: torch.matmul(row0, m6), row0, m6, False),
+             "probe_route_dyn": (lambda: torch.matmul(flat, m7), flat, m7, True)}
+    for name, (call, a, m, dynamic_row) in calls.items():
+        err = (call() - _routed_sum(win, rel, steps, dynamic_row)).abs()
+        if (err > LIBRARY_TOL * torch.matmul(a.abs(), m)).any():
+            raise AssertionError(f"{name}: the library product is not within its tolerance of the "
+                                 f"plain version (max abs err {float(err.max()):.3g})")
+    return {name: call for name, (call, *_) in calls.items()}
 
 
 WIN_BYTES = C * WIN_ROWS * LANE * 4
@@ -324,48 +372,104 @@ def _equal(got, want, what: str) -> None:
 
 
 def launch_shape() -> dict:
-    """The kernels' launch shape from the library: threads a block, P8's and
-    P9's dynamic shared memory, and P9's index rows in flight."""
-    shape = (ctypes.c_int * 4)()
+    """The kernels' launch shape from the library: threads a block, the
+    dynamic shared memory of P8 (with the store), P9, P6 build+dot and P7,
+    and P9's index rows in flight."""
+    shape = (ctypes.c_int * 6)()
     _build.check(_build.load().atray_probe_route_shape(shape), "atray_probe_route_shape")
     return {"threads": shape[0], "nested_smem": shape[1], "bigread_smem": shape[2],
-            "depth": shape[3]}
+            "depth": shape[3], "loop_smem": shape[4], "dyn_smem": shape[5]}
+
+
+# counter name -> (its shared memory in launch_shape, the instance that
+# phase 14 reports): P6 build+dot x1, P7, P8 with the store and the
+# carries, P9 with the store
+_REPORTED = {
+    "probe_route_loop": ("loop_smem", "probe_route_loop_kernelILi3ELi1EE"),
+    "probe_route_dyn": ("dyn_smem", "probe_route_dyn_kernel"),
+    "probe_route_nested": ("nested_smem", "probe_route_nested_kernelILb1ELb1EE"),
+    "probe_route_bigread": ("bigread_smem", "probe_route_bigread_kernelILb1EE"),
+}
 
 
 def resources(kernel: str) -> str:
     """Threads, shared memory and ptxas's registers and spills of the
-    instance that phase 14 reports: P8 with the store and the carries, P9
-    with the store."""
+    instance of ``kernel`` that phase 14 reports (``_REPORTED``)."""
     shape = launch_shape()
-    if kernel == "probe_route_nested":
-        smem, entry = shape["nested_smem"], "probe_route_nested_kernelILb1ELb1EE"
-    else:
-        smem, entry = shape["bigread_smem"], "probe_route_bigread_kernelILb1EE"
+    smem, entry = _REPORTED[kernel]
     extra = f", {shape['depth']} index rows in flight" if kernel == "probe_route_bigread" else ""
-    return (f"{shape['threads']} threads, {smem} B shared memory{extra}, ptxas "
+    return (f"{shape['threads']} threads, {shape[smem]} B shared memory{extra}, ptxas "
             f"{_timing.ptxas(entry)}")
 
 
 NESTED_CHECK_ROWS = (0, 1, 2, 7, 8, OUTER_ROWS)
 NESTED_CHECK_INNER = (1, 3, 7)
+ROUTE_CHECK_STEPS = (0, 1, LANE - 1, LANE, LANE + 1, STEPS)
+
+
+def route_rel_sets(rel: torch.Tensor, steps: int) -> dict:
+    """The rel sets of the P6 and P7 check at ``steps`` steps: the script's;
+    rel % 136 (most lanes in the window); every lane at 127 or more (a
+    lane's whole window once the steps reach it); all lanes equal (one
+    range for the warp); every lane at or past the step count, lane 0 at
+    it (terms from k = rel - steps + 1, or none)."""
+    past = steps + torch.remainder(rel, 136)
+    past[0] = steps
+    return {"script": rel, "rel % 136": torch.remainder(rel, 136),
+            "127 + rel % 64": LANE - 1 + torch.remainder(rel, 64),
+            "all 100": torch.full_like(rel, 100), "at or past the steps": past}
+
+
+def loop_trips(steps: int, unroll: int) -> List[int]:
+    """Trip counts whose n x ``unroll`` is ``steps`` rounded down and up."""
+    return sorted({steps // unroll, -(-steps // unroll)})
+
+
+def check_routes(dev: torch.device, win: torch.Tensor, rel: torch.Tensor) -> int:
+    """Every P6 variant and P7 equal to its plain version at n x unroll in
+    ``ROUTE_CHECK_STEPS`` (rounded to a multiple of unroll) on each of
+    ``route_rel_sets``; the number of cases. The plain iota, dot and empty
+    do not read rel, so each is taken once a trip count."""
+    cases = 0
+    for steps in ROUTE_CHECK_STEPS:
+        for variant, unroll in LOOP_CASES:
+            for count in loop_trips(steps, unroll):
+                n = trips(dev, count)
+                want = None
+                for name, r in route_rel_sets(rel, count * unroll).items():
+                    if want is None or variant == "build+dot":
+                        want = route_loop_ref(n, win, r, variant, unroll)
+                    _equal(route_loop(n, win, r, variant, unroll), want,
+                           f"P6 {variant} x{unroll} n={count} rel {name}")
+                    cases += 1
+        n = trips(dev, steps)
+        for name, r in route_rel_sets(rel, steps).items():
+            _equal(route_dyn(n, win, r), route_dyn_ref(n, win, r), f"P7 n={steps} rel {name}")
+            cases += 1
+    return cases
 
 
 def check(dev: torch.device, out=print) -> dict:
     """Each kernel equal to its plain version (every step adds one selected
     term in the plain version's order): every loop variant and the dynamic
-    row at the script's trip counts; the nested rows at 0, 1, 2, 7, 8 and
-    the script's rows, inner 1, 3 and 7, each flag, with the script's rel
-    and with rel below 136 so that their short loops gather (carries
-    included); the big read at 0, 1, D - 1, D, D + 1 and the script's rows,
-    D the rows in flight, on the script's table and on one of 5 rows (so
-    that (7 jj) % rows wraps inside the queue), each flag, slab included."""
+    row (``check_routes``); the nested rows at 0, 1, 2, 7, 8 and the
+    script's rows, inner 1, 3 and 7, each flag, with the script's rel and
+    with rel below 136 so that their short loops gather (carries included);
+    the big read at 0, 1, D - 1, D, D + 1 and the script's rows, D the rows
+    in flight, on the script's table and on one of 5 rows (so that
+    (7 jj) % rows wraps inside the queue), each flag, slab included."""
     win, rel = inputs(dev)
-    for variant, unroll in LOOP_CASES:
-        n = trips(dev, STEPS // unroll)
-        _equal(route_loop(n, win, rel, variant, unroll),
-               route_loop_ref(n, win, rel, variant, unroll), f"P6 {variant} x{unroll}")
-    n = trips(dev, STEPS)
-    _equal(route_dyn(n, win, rel), route_dyn_ref(n, win, rel), "P7")
+    route_cases = check_routes(dev, win, rel)
+    # P6 build+dot and P7 stage the window by 16-byte loads: a window off
+    # that boundary is refused, not read
+    off = torch.zeros(win.numel() + 1, dtype=win.dtype, device=dev)[1:].view(win.shape)
+    for name, call in (("P6", lambda: route_loop(trips(dev, 1), off, rel)),
+                       ("P7", lambda: route_dyn(trips(dev, 1), off, rel))):
+        try:
+            call()
+        except RuntimeError:
+            continue
+        raise AssertionError(f"{name}: a window off a 16-byte boundary was not refused")
     for r in (rel, torch.remainder(rel, 136)):
         for rows in NESTED_CHECK_ROWS:
             n = trips(dev, rows)
@@ -383,8 +487,9 @@ def check(dev: torch.device, out=print) -> dict:
             for sd in (False, True):
                 _equal(route_bigread(n, idx, win, sd), route_bigread_ref(n, idx, win, sd),
                        f"P9 idx rows={idx.shape[0]} rows={rows} store_dyn={sd}")
-    out(f"probe_r20 check: P6 {len(LOOP_CASES)} variants at {STEPS} steps, P7 at {STEPS}; P8 at "
-        f"rows {NESTED_CHECK_ROWS}, inner {NESTED_CHECK_INNER}, both rel sets; P9 at rows "
+    out(f"probe_r20 check: P6 {len(LOOP_CASES)} variants and P7 at n x unroll near "
+        f"{ROUTE_CHECK_STEPS} on {len(route_rel_sets(rel, 0))} rel sets ({route_cases} cases); P8 "
+        f"at rows {NESTED_CHECK_ROWS}, inner {NESTED_CHECK_INNER}, both rel sets; P9 at rows "
         f"{big_rows} ({depth} in flight), idx of {IDX_ROWS} and 5 rows; every flag: kernel == "
         f"plain version (bit-equal)")
     return {k: 0.0 for k in ("probe_route_loop", "probe_route_dyn", "probe_route_nested",
@@ -453,11 +558,36 @@ def table(dev: torch.device, out=print) -> List[_timing.Timed]:
     return res
 
 
+def device_table(dev: torch.device, out=print) -> dict:
+    """(counter name, label) -> the device ms of one launch of each P6
+    variant and of P7 at the script's shapes, from launches queued behind
+    a spin (``_timing.device_ms``), each against its issue-rate bound (a
+    time under it raises). ``table``'s CUDA-event mean of a launch of a few
+    microseconds is the wrapper's host time; this is the kernel's own. Its
+    launches are not ``table``'s."""
+    win, rel = inputs(dev)
+    cases = [("probe_route_loop", f"{v} x{u}", STEPS // u,
+              lambda v=v, u=u, n=trips(dev, STEPS // u): route_loop(n, win, rel, v, u),
+              {"variant": v, "unroll": u}) for v, u in LOOP_CASES]
+    n = trips(dev, STEPS)
+    cases.append(("probe_route_dyn", "dyn", STEPS, lambda: route_dyn(n, win, rel), {}))
+    res = {}
+    for kernel, label, count, fn, kw in cases:
+        ms = _timing.device_ms(fn)
+        bound = issue_bound_ms(issue_instr(kernel, count, rel, **kw))
+        _timing.at_least_bound(ms, bound, f"{kernel} {label} (issue rate, device time)")
+        res[(kernel, label)] = ms
+        out(f"probe_r20 device time {kernel} {label}: {ms * 1e3:.2f} us a launch (queued launches; "
+            f"issue-rate bound {bound * 1e3:.3f} us)")
+    return res
+
+
 def main() -> None:
     dev = _timing.require_cuda()
     print(_timing.gpu_line())
     check(dev)
     table(dev)
+    device_table(dev)
 
 
 if __name__ == "__main__":

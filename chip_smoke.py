@@ -145,22 +145,27 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     against its plain version (``check()`` of each probe module: the
     float32 products within rtol 1e-5, atol 1e-5 x reps at reps 0, 1 and
     64 (P1, P2 at M = 14 and 16) or 8 (P4, P5, also on a dense normal b
-    within ``probe_r19.dense_tolerance``), everything else equal; the route probes
-    at the scripts' trip counts, P8 also at 0, 1, 2, 7 and 8 rows and inner
+    within ``probe_r19.dense_tolerance``), everything else equal; every P6
+    variant and P7 at n x unroll of 0, 1, 127, 128, 129 and 16,384 steps
+    (rounded to a multiple of unroll) on five rel sets (the script's, rel %
+    136, every lane at 127 or more, all lanes equal, every lane at or past
+    the step count); P8 at 0, 1, 2, 7, 8 and the script's rows and inner
     1, 3 and 7, P9 at 0, 1 and around its index rows in flight and on a
     5-row index table, each flag; the takes at 2,073,600 lanes x 14 planes on
     the maps of every occupancy and a scattered one); then, counted, each
     probe's table at the script's shapes and reps, every line with its bound
     on the card and, for the one-block kernels, on one SM (P1-P5) or at one
-    scheduler's issue rate (P6-P9: the busiest warp's instructions,
-    ``probe_r20.issue_instr``), with the time over it (a time under it
-    fails); P1-P5, P8 and P9 with the block's threads and shared memory and
-    ptxas's registers and spills, P11's
+    scheduler's issue rate (P6-P9: the busiest warp's instructions, 14 for
+    each term of its busiest lane, ``probe_r20.issue_instr``), with the
+    time over it (a time under it fails); P1-P9 with the block's threads
+    and shared memory and ptxas's registers and spills, P11's
     with its resources and a second bound from the bytes its design moves
     (staged rows, index, output); then the plain version's and the library
-    call's time (``torch.matmul`` for P1-P5, ``index_select`` for P10-P11:
-    its first call apart, then the mean of warm calls, with its kernels'
-    names and grids from the profiler) at one variant of each.
+    call's time (``torch.matmul`` for P1-P5, and for P6 build+dot and P7 a
+    product with a 0/1 mask held to the plain version within its stated
+    tolerance; ``index_select`` for P10-P11: its first call apart, then the
+    mean of warm calls, with its kernels' names and grids from the
+    profiler) at one variant of each.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every profile (phases 4, 8, 9, 11, 12) prints device time by kernel
@@ -2077,9 +2082,11 @@ def _probe_plain_and_library(dev):
     """name -> (plain ms, library ms or None) at each entry's variant. The
     library call computes the same function in one call: the reps-fold sum
     of products as one product over the reps-fold contraction (a tiled
-    along K, b along K), and the takes as one ``index_select`` with a zero
-    word appended, to which dead lanes point. A product's library time is
-    the mean of three calls after a first one, timed apart."""
+    along K, b along K), P6 build+dot and P7 as one product of the window
+    with a 0/1 mask (``probe_r20.library_calls``, held to the plain version
+    first), and the takes as one ``index_select`` with a zero word appended,
+    to which dead lanes point. A library time is the mean of three calls
+    (ten for P6, P7, P10 and P11) after a first one, timed apart."""
     import numpy as np
     import torch
 
@@ -2121,9 +2128,11 @@ def _probe_plain_and_library(dev):
     res["probe_dot_indep"] = (ms(lambda: probe_r19.dot_indep_ref(a, b, reps)), lib)
     win, rel = probe_r20.inputs(dev)
     n = probe_r20.trips(dev, probe_r20.STEPS)
+    route_lib = probe_r20.library_calls(win, rel, probe_r20.STEPS)
     res["probe_route_loop"] = (ms(lambda: probe_r20.route_loop_ref(n, win, rel, "build+dot", 1)),
-                               None)
-    res["probe_route_dyn"] = (ms(lambda: probe_r20.route_dyn_ref(n, win, rel)), None)
+                               lib_ms("probe_route_loop", route_lib["probe_route_loop"], 10))
+    res["probe_route_dyn"] = (ms(lambda: probe_r20.route_dyn_ref(n, win, rel)),
+                              lib_ms("probe_route_dyn", route_lib["probe_route_dyn"], 10))
     n = probe_r20.trips(dev, probe_r20.OUTER_ROWS)
     res["probe_route_nested"] = (ms(lambda: probe_r20.route_nested_ref(n, win, rel, 7, True, True)),
                                  None)
@@ -2181,6 +2190,9 @@ def phase_probes(dev, gpu):
         (t,) = [t for t in timed if t.kernel == name and t.label == label]
         res[name] = {"launches": launches, "err": errs[name], "t": t}
     t_table = time.perf_counter() - t_phase - t_check
+    for (name, label), ms in probe_r20.device_table(dev, out=say).items():
+        if res[name]["t"].label == label:
+            res[name]["device_ms"] = ms
     lib_res = _probe_plain_and_library(dev)
     design = lib_res.pop("design_bound")
     res["probe_stream_take"]["design_bound"] = design
@@ -2198,8 +2210,10 @@ def phase_probes(dev, gpu):
         elif name == "probe_stream_take":
             shape = (f", {t.ms / design[0]:.3f}x the design's bound {design[0]:.6g} ms "
                      f"(staged rows, index, output), {probe_r22.resources()}")
-        elif name in ("probe_route_nested", "probe_route_bigread"):
+        elif name.startswith("probe_route_"):
             shape = f", {probe_r20.resources(name)}"
+        if "device_ms" in res[name]:
+            shape += f", device {res[name]['device_ms']:.5f} ms a launch (queued launches)"
         say(f"{name} {t.label}: kernel {t.ms:.4f} ms, {t.bound_text()}, plain {plain_ms:.4f} ms, "
             f"library {lib}, {res[name]['launches']} launches in the probes' run{shape}")
     print(f"phase 14 probes: checks {t_check:.1f} s, tables {t_table:.1f} s, all "
@@ -2215,7 +2229,8 @@ def _entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_m
     probes add the ``variant`` timed and, for one-block kernels,
     ``one_sm_bound_ms`` (P1-P5) or ``issue_bound_ms`` (P6-P9: the busiest
     warp's instructions over one scheduler's issue rate), P11
-    ``design_bound_ms`` (the bytes its design moves)."""
+    ``design_bound_ms`` (the bytes its design moves), P6 and P7
+    ``device_ms`` (the device time of a launch, ``_timing.device_ms``)."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms, **rays}
@@ -2323,7 +2338,9 @@ def main() -> int:
                   {"one_sm_bound_ms": probes[name]["t"].bound_ms * 132}
                   if probes[name]["t"].one_block else {}),
                **({"design_bound_ms": probes[name]["design_bound"][0]}
-                  if "design_bound" in probes[name] else {}))
+                  if "design_bound" in probes[name] else {}),
+               **({"device_ms": probes[name]["device_ms"]}
+                  if "device_ms" in probes[name] else {}))
         for name, source, replaces, _ in PROBES
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -148,6 +148,24 @@ def case_p7(rng):
     assert np.count_nonzero(ref) > 1000
 
 
+def case_route_edge(rng, kernel, steps, past=False):
+    # P6 build+dot x1 or P7 at a step count near the window's 128 columns;
+    # ``past`` puts every lane at or past the step count, lane 0 at it
+    win, rel = _route_inputs(rng, rel_hi=300)
+    if past:
+        rel = steps + rel % 136
+        rel[0, 0] = steps
+    n = np.asarray([steps], np.int32)
+    script = _script("probe_r20")
+    kern = script["make_kern"]("build+dot", 1) if kernel == "P6" else script["_kern_dyn"]
+    ref = _call(kern, F32((C, LANE), jnp.float32), jnp.asarray(n), jnp.asarray(win),
+                jnp.asarray(rel), in_specs=SMEM_VMEM)
+    fn = (lambda *a: probe_r20.route_loop(*a, "build+dot", 1)) if kernel == "P6" else \
+        probe_r20.route_dyn
+    np.testing.assert_array_equal(fn(_t(n), _t(win), _t(rel[0])).numpy(), ref)
+    assert np.count_nonzero(ref) > 0
+
+
 def case_p8(rng, cases=((40, False), (43, True)), inner=7):
     # rel within a few lanes of 0 so that the rows' short loops gather
     win, rel = _route_inputs(rng, rel_hi=136)
@@ -217,7 +235,13 @@ def case_p11(rng):
 CASES = {f"P{i}": fn for i, fn in enumerate(
     (case_p1, case_p2, case_p3, case_p4, case_p5, case_p6, case_p7, case_p8, case_p9, case_p10,
      case_p11), start=1)}
-# P8 at one and two rows (an even and an odd last row) and at inner 3
+# P6 build+dot and P7 at 1, 127 and 129 steps and with every lane at or
+# past the step count; P8 at one and two rows (an even and an odd last row)
+# and at inner 3
+CASES.update({f"{k} steps={steps}": functools.partial(case_route_edge, kernel=k, steps=steps)
+              for k in ("P6", "P7") for steps in (1, 127, 129)})
+CASES.update({f"{k} rel>=steps": functools.partial(case_route_edge, kernel=k, steps=129, past=True)
+              for k in ("P6", "P7")})
 CASES.update({
     "P8 rows=1": functools.partial(case_p8, cases=((1, False), (1, True))),
     "P8 rows=2": functools.partial(case_p8, cases=((2, False), (2, True))),
@@ -239,13 +263,44 @@ def _warp0_rel(warp0):
 
 
 def _loop_hand_count():
-    # lane 0 gathers at steps 0..5, lane 1 at 173..300: 134 of 400 steps
+    # lane 0 gathers at steps 0..5, lane 1 at 173..300: the warp needs 14
+    # adds for each of lane 1's 128 terms, not for each of the 134 steps
+    # on which one of its lanes gathers
     rel = _warp0_rel([5, 300])
-    for variant, per_warp in (("build+dot", [134 * 14, 0, 0, 0]), ("iota", [400] * 4),
+    for variant, per_warp in (("build+dot", [128 * 14, 0, 0, 0]), ("iota", [400] * 4),
                               ("dot", [400 * 14] * 4), ("empty", [0] * 4)):
         assert probe_r20.issue_instr("probe_route_loop", 100, rel, variant=variant,
                                      unroll=4) == per_warp, variant
-    assert probe_r20.issue_instr("probe_route_dyn", 400, rel) == [134 * 14, 0, 0, 0]
+    assert probe_r20.issue_instr("probe_route_dyn", 400, rel) == [128 * 14, 0, 0, 0]
+
+
+def _routed_hand_count(rel, steps, per_warp):
+    assert probe_r20.issue_instr("probe_route_dyn", steps, _t(rel)) == per_warp
+    assert probe_r20.issue_instr("probe_route_loop", steps // 4, _t(rel), unroll=4) == per_warp
+
+
+def _overlap_hand_count():
+    # 400 steps; warp 0: lane 0 gathers at steps 0..100 (101 terms), lane 1
+    # at 23..150 (128); warp 1: lanes at 60 and 90, steps 0..60 and 0..90
+    rel = np.full(LANE, 10_000, np.int32)
+    rel[[0, 1, 32, 33]] = [100, 150, 60, 90]
+    _routed_hand_count(rel, 400, [128 * 14, 91 * 14, 0, 0])
+
+
+def _short_hand_count():
+    # 48 steps, fewer than the window's 128 columns: a lane at 100 gathers
+    # at steps 0..47, one at 30 at 0..30, one at 20 (warp 2) at 0..20
+    rel = np.full(LANE, 10_000, np.int32)
+    rel[[0, 1, 64]] = [100, 30, 20]
+    _routed_hand_count(rel, 48, [48 * 14, 0, 21 * 14, 0])
+
+
+def _no_term_hand_count():
+    # 100 steps: a lane at 300 gathers at none (its steps 173..300 are past
+    # the last), one at -5 at none, one at 5 at steps 0..5
+    rel = np.full(LANE, 10_000, np.int32)
+    rel[[0, 1, 2, 96]] = [300, -5, 5, 300]
+    _routed_hand_count(rel, 100, [6 * 14, 0, 0, 0])
 
 
 def _nested_hand_count():
@@ -287,10 +342,23 @@ def _bound_hand_count():
                                      when_store=True, carry6=True)) == 83 * probe_r20.OUTER_ROWS
 
 
-@pytest.mark.parametrize("count", [_loop_hand_count, _nested_hand_count, _bigread_hand_count,
-                                   _bound_hand_count], ids=["loop", "nested", "bigread", "bound"])
+@pytest.mark.parametrize("count", [_loop_hand_count, _overlap_hand_count, _short_hand_count,
+                                   _no_term_hand_count, _nested_hand_count, _bigread_hand_count,
+                                   _bound_hand_count],
+                         ids=["loop", "overlap", "short", "no term", "nested", "bigread", "bound"])
 def test_issue_instr_matches_a_hand_count(count):
     count()
+
+
+@pytest.mark.parametrize("steps", [0, 1, 129, probe_r20.STEPS])
+def test_route_library_products_match_plain_versions_within_their_tolerance(steps):
+    # the library yardstick of P6 build+dot and P7: one product with a 0/1
+    # mask each (library_calls raises beyond its tolerance); exact where
+    # no lane has a term
+    win, rel = probe_r20.inputs("cpu")
+    calls = probe_r20.library_calls(win, rel % 300, steps)
+    got = calls["probe_route_dyn"]()
+    assert got.shape == (C, LANE) and (torch.count_nonzero(got) > 0) == (steps > 0)
 
 
 def test_a_time_under_its_issue_rate_bound_raises():
