@@ -93,6 +93,7 @@ _SIGNATURES = {
     "atray_probe_route_bigread": [_P, _P, ctypes.c_int, _P, _P, _P, ctypes.c_int, _P],
     "atray_probe_route_shape": [_P],
     "atray_probe_take_rm": [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
+    "atray_probe_take_rm_shape": [ctypes.c_int, ctypes.c_int, _P],
     "atray_probe_stream_take": [_P, _P, _P] + [ctypes.c_int] * 3 + [_P],
     "atray_probe_stream_take_shape": [_P],
 }

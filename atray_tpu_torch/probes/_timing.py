@@ -105,7 +105,9 @@ class Timed:
     (``bound_ms`` by ``bound_by``); a one-block kernel's one-SM bound is
     ``bound_ms * SMS``, unless it has an issue-rate bound (``issue_bound_ms``:
     its busiest warp's instructions over one scheduler's rate), which
-    replaces it."""
+    replaces it. A take may add its device time (``device_ms``, of
+    ``device_ms()``) and the bound of the sectors it must read
+    (``sector_bound_ms``)."""
 
     kernel: str
     label: str
@@ -114,6 +116,8 @@ class Timed:
     bound_by: str
     one_block: bool
     issue_bound_ms: Optional[float] = None
+    device_ms: Optional[float] = None
+    sector_bound_ms: Optional[float] = None
 
     def bound_text(self) -> str:
         text = f"bound {self.bound_ms:.6g} ms by {self.bound_by} (card)"

@@ -152,18 +152,24 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     the step count); P8 at 0, 1, 2, 7, 8 and the script's rows and inner
     1, 3 and 7, P9 at 0, 1 and around its index rows in flight and on a
     5-row index table, each flag; the takes at 2,073,600 lanes x 14 planes on
-    the maps of every occupancy and a scattered one); then, counted, each
-    probe's table at the script's shapes and reps, every line with its bound
+    the maps of every occupancy and a scattered one, P10 also on every lane
+    dead, the identity, indices at N and above, only the last row live,
+    int32 NaN bit patterns, C = 1, 3 and 17 and 37 rows, P11 on its
+    ``check_maps``); then, counted, each probe's table at the script's
+    shapes and reps, every line with its bound
     on the card and, for the one-block kernels, on one SM (P1-P5) or at one
     scheduler's issue rate (P6-P9: the busiest warp's instructions, 14 for
     each term of its busiest lane, ``probe_r20.issue_instr``), with the
     time over it (a time under it fails); P1-P9 with the block's threads
     and shared memory and ptxas's registers and spills, P11's
     with its resources and a second bound from the bytes its design moves
-    (staged rows, index, output); then the plain version's and the library
-    call's time (``torch.matmul`` for P1-P5, and for P6 build+dot and P7 a
-    product with a 0/1 mask held to the plain version within its stated
-    tolerance; ``index_select`` for P10-P11: its first call apart, then the
+    (staged rows, index, output), P10's with its threads, grid, registers and
+    spills, its device time (launches queued behind a spin) and a second
+    bound from the 32-byte sectors its map touches (``probe_r21.sector_work``;
+    printed, not enforced), the scattered map on a line of its own; then
+    the plain version's and the library call's time (``torch.matmul`` for
+    P1-P5, and for P6 build+dot and P7 a product with a 0/1 mask held to
+    the plain version within its stated tolerance; ``index_select`` for P10-P11: its first call apart, then the
     mean of warm calls, with its kernels' names and grids from the
     profiler) at one variant of each.
 
@@ -2193,6 +2199,9 @@ def phase_probes(dev, gpu):
     for (name, label), ms in probe_r20.device_table(dev, out=say).items():
         if res[name]["t"].label == label:
             res[name]["device_ms"] = ms
+    for name in res:
+        if res[name]["t"].device_ms is not None:
+            res[name]["device_ms"] = res[name]["t"].device_ms
     lib_res = _probe_plain_and_library(dev)
     design = lib_res.pop("design_bound")
     res["probe_stream_take"]["design_bound"] = design
@@ -2212,6 +2221,10 @@ def phase_probes(dev, gpu):
                      f"(staged rows, index, output), {probe_r22.resources()}")
         elif name.startswith("probe_route_"):
             shape = f", {probe_r20.resources(name)}"
+        elif name == "probe_take_rm":
+            shape = (f", {t.ms / t.sector_bound_ms:.3f}x the sector bound "
+                     f"{t.sector_bound_ms:.6g} ms (``probe_r21.sector_work``), "
+                     f"{probe_r21.resources()}")
         if "device_ms" in res[name]:
             shape += f", device {res[name]['device_ms']:.5f} ms a launch (queued launches)"
         say(f"{name} {t.label}: kernel {t.ms:.4f} ms, {t.bound_text()}, plain {plain_ms:.4f} ms, "
@@ -2229,8 +2242,9 @@ def _entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_m
     probes add the ``variant`` timed and, for one-block kernels,
     ``one_sm_bound_ms`` (P1-P5) or ``issue_bound_ms`` (P6-P9: the busiest
     warp's instructions over one scheduler's issue rate), P11
-    ``design_bound_ms`` (the bytes its design moves), P6 and P7
-    ``device_ms`` (the device time of a launch, ``_timing.device_ms``)."""
+    ``design_bound_ms`` (the bytes its design moves), P10
+    ``sector_bound_ms`` (the 32-byte sectors its map touches), P6, P7 and
+    P10 ``device_ms`` (the device time of a launch, ``_timing.device_ms``)."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms, **rays}
@@ -2339,6 +2353,8 @@ def main() -> int:
                   if probes[name]["t"].one_block else {}),
                **({"design_bound_ms": probes[name]["design_bound"][0]}
                   if "design_bound" in probes[name] else {}),
+               **({"sector_bound_ms": probes[name]["t"].sector_bound_ms}
+                  if probes[name]["t"].sector_bound_ms is not None else {}),
                **({"device_ms": probes[name]["device_ms"]}
                   if "device_ms" in probes[name] else {}))
         for name, source, replaces, _ in PROBES

@@ -534,6 +534,66 @@ def test_stream_take_plain_version_matches_tpu_kernel_on_interleaved_dead_rows()
     assert np.count_nonzero(ref) > 0 and (ref.reshape(rows, LANE) == 0).all(1).sum() > rows // 4
 
 
+def _np_take_rm(cols, idx):
+    """numpy's ray-major take: out[j, c, l] = cols[s // 128, c, s % 128] for
+    s = idx[128 j + l] in [0, N), else 0."""
+    rows, c, _ = cols.shape
+    ok = (idx >= 0) & (idx < rows * LANE)
+    s = np.where(ok, idx, 0).astype(np.int64)
+    got = cols[s // LANE, :, s % LANE]                      # (N, c)
+    got[~ok] = 0
+    return got.reshape(rows, LANE, c).transpose(0, 2, 1)
+
+
+# (sources at some output lanes, distinct 32-byte sectors of one plane)
+SECTOR_CASES = {"one sector": ([8, 9, 15, 15], 1),
+                "two sectors of a row": ([7, 8, 3], 2),
+                "across rows": ([127, 128, 3 * LANE + 5, 3 * LANE + 6], 3)}
+
+
+@pytest.mark.parametrize("case", list(SECTOR_CASES))
+def test_sector_work_matches_a_hand_count(case):
+    rows, c = 4, 3
+    n = rows * LANE
+    sources, sectors = SECTOR_CASES[case]
+    idx = np.full(n, -1, np.int32)
+    idx[[5, 70, 300, 511][:len(sources)]] = sources
+    idx[[6, 7]] = [n, -5]                                   # dead: at N, below 0
+    assert probe_r21.sector_work(_t(idx), c) == 4 * n + 32 * c * sectors + 4 * c * n
+    live = len(sources)
+    assert probe_r21.take_work(_t(idx), c) == 4 * n + 4 * c * live + 4 * c * n
+
+
+@pytest.mark.parametrize("c", [1, 3, 17])
+def test_take_rm_plain_version_matches_numpy_on_the_edge_maps(c):
+    rng = np.random.default_rng(c)
+    rows = 6
+    cols = rng.normal(size=(rows, c, LANE)).astype(np.float32)
+    words = probe_r21.nan_words("cpu", rng, rows, c).numpy()
+    packed = pack_indices(_t(rng.random(rows * LANE) < 0.15))
+    for label, idx in probe_r21.edge_maps("cpu", rng, rows) + [("packed", packed)]:
+        for x in (cols, words):
+            got = probe_r21.take_rm_ref(_t(x), idx).numpy()
+            np.testing.assert_array_equal(got.view(np.uint32),
+                                          _np_take_rm(x, idx.numpy()).view(np.uint32),
+                                          err_msg=label)
+
+
+def test_take_rm_launch_refuses_a_misaligned_idx_before_loading_the_library():
+    rng = np.random.default_rng(4)
+    rows = 3
+    cols = _t(rng.normal(size=(rows, 2, LANE)).astype(np.float32))
+    buf = torch.from_numpy(rng.integers(-1, rows * LANE, size=rows * LANE + 4).astype(np.int32))
+    idx = buf[1:rows * LANE + 1]                            # contiguous, 4 bytes off
+    assert buf.data_ptr() % 16 == 0 and idx.is_contiguous() and idx.data_ptr() % 16 == 4
+    loaded = _build._loaded.lib
+    with pytest.raises(ValueError, match="16-byte"):
+        probe_r21.launch_take_rm(cols, idx, torch.empty_like(cols))
+    assert _build._loaded.lib is loaded
+    np.testing.assert_array_equal(probe_r21.take_rm(cols, idx).numpy(),
+                                  _np_take_rm(cols.numpy(), idx.numpy()))
+
+
 def test_cpu_wrappers_count_plain_calls_only():
     rng = np.random.default_rng(3)
     a = _t(rng.normal(size=(14, 512)).astype(np.float32))
