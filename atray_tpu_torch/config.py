@@ -18,15 +18,17 @@ class RenderSettings:
     resolution: (width, height) of the film.
     samples_per_pixel: stochastic samples averaged per pixel.
     bounce_limit: max path length (camera ray = bounce 0).
-    anti_aliasing: jitter the film point within the pixel (not ported yet:
-        ``render`` raises NotImplementedError).
-    use_accel: kept for parity with the reference settings; the port always
-        traverses the accel it is given.
+    anti_aliasing: jitter the film point within the pixel, by the bits of
+        ``jax.random.uniform`` under the key's first split half.
+    use_accel: read by the reference's command line only (whether it builds
+        an accel); ``render`` traverses the accel it is given, and with
+        ``accel=None`` tests every triangle by brute force.
     ray_chunk: trace rays in chunks of this many; 0 means one chunk.
     sort_bounces: one-shot compaction after the first diffuse bounce (dead
         rays last, live rays grouped by origin cell). Film-identical to the
         unsorted render: random numbers are keyed by global ray id.
-    nee: next-event estimation (not ported yet: raises).
+    nee: next-event estimation: a shadow ray to one light a hit, picked from
+        the spheres and the emissive triangles.
     lane_pack: on top of sort_bounces, pack live rays to a dense prefix with
         the lane-take kernel. Film-identical.
     pair_bounces: with a ``ShadedWideBVH`` that has a treelet view, the

@@ -4,7 +4,9 @@
 Conventions are the reference's: right-handed basis from eye/look_dir with
 world up (0, 1, 0); ``h_fov`` is the film half-width and the half-height is
 ``h_fov / aspect``; film coordinates span [-1, 1]; pixel (0, 0) is the
-top-left. The basis is host numpy; rays are tensors on the device asked for
+top-left; anti-aliasing jitters each film point uniformly within its
+pixel, by ``jax.random.uniform``'s bits (``core.threefry.uniform``). The
+basis is host numpy; rays are tensors on the device asked for
 (``device=None`` means ``"cuda"``; pass ``device="cpu"`` for the CPU).
 """
 
@@ -18,6 +20,7 @@ import torch
 
 from atray_tpu_torch.core.intersect import normalize
 from atray_tpu_torch.device import resolve_device
+from atray_tpu_torch.core.threefry import uniform
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,21 +61,24 @@ def look_at_camera(eye, target, h_fov: float = 1.0, aspect: float = 16.0 / 9.0) 
 
 def camera_rays(
     cam: Camera, width: int, height: int, spp: int, device=None,
-    anti_aliasing: bool = False,
+    anti_aliasing: bool = False, *, key=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(origins, dirs), each (spp * height * width, 3) float32 on ``device``
     (None: "cuda"); dirs are unit length, order is sample-major then
-    row-major."""
-    if anti_aliasing:
-        raise NotImplementedError(
-            "anti_aliasing: AA jitter (threefry uniform bits) is not ported yet"
-        )
+    row-major. ``anti_aliasing`` needs ``key`` (uint32[2]): the film point
+    moves by up to half a pixel each way, the jitter drawn on ``device``."""
     device = resolve_device(device)
     f32 = torch.float32
     xs = (torch.arange(width, dtype=f32, device=device) + 0.5) / width * 2.0 - 1.0
     ys = 1.0 - (torch.arange(height, dtype=f32, device=device) + 0.5) / height * 2.0
     fx = xs[None, None, :].expand(spp, height, width)
     fy = ys[None, :, None].expand(spp, height, width)
+    if anti_aliasing:
+        if key is None:
+            raise ValueError("anti_aliasing=True requires a PRNG key")
+        jit = uniform(key, (spp, height, width, 2), -1.0, 1.0, device=device)
+        fx = fx + jit[..., 0] / width    # half-pixel extent in film units
+        fy = fy + jit[..., 1] / height
 
     def vec(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)

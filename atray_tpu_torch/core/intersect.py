@@ -3,9 +3,10 @@
 
 The miss sentinel, the minimum hit distance, ``dot``, ``cross`` and
 ``normalize`` with the reference's op order
-(``v * reciprocal(sqrt(max(v.v, eps)))``); ``moller_trumbore``,
-``sphere_hits`` and ``plane_hits``, the forms ``render.wavefront``'s
-``nearest_hit_ids`` and ``resolve_hit`` use; ``safe_inv_dir`` and the slab
+(``v * reciprocal(sqrt(max(v.v, eps)))``) and ``reflect``;
+``moller_trumbore``, the brute-force ``first_triangle_hit``, ``sphere_hits``
+and ``plane_hits``, the forms ``render.wavefront``'s ``nearest_hit_ids``
+and ``resolve_hit`` use; ``safe_inv_dir`` and the slab
 test ``aabb_entry_t`` of the skip-link walk (``accel/traverse.py``). A miss
 is ``t = INF``.
 """
@@ -33,6 +34,11 @@ def normalize(v: torch.Tensor, eps: float = 1.0e-20) -> torch.Tensor:
     return v * torch.reciprocal(torch.sqrt(torch.clamp_min(dot(v, v), eps)))[..., None]
 
 
+def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Mirror reflection of direction ``d`` about normal ``n``."""
+    return d - 2.0 * dot(d, n)[..., None] * n
+
+
 def moller_trumbore(orig, dirn, p0, e1, e2, backface_cull: bool = True):
     """Möller–Trumbore over broadcast-compatible (..., 3) rows: returns
     (t, u, v, hit), t = INF where ``hit`` is false. With ``backface_cull``
@@ -48,6 +54,30 @@ def moller_trumbore(orig, dirn, p0, e1, e2, backface_cull: bool = True):
     t = dot(e2, qvec) * inv_det
     hit = valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > T_MIN)
     return torch.where(hit, t, INF), u, v, hit
+
+
+BRUTE_BLOCK = 1 << 26    # (rays x triangles) entries of one brute-force block
+
+
+def first_triangle_hit(orig, dirn, tri_p0, tri_e1, tri_e2, backface_cull: bool = True):
+    """Nearest triangle per ray by brute force over all T triangles, in
+    blocks of rays whose (rays x T) tests stay under ``BRUTE_BLOCK``
+    entries: (t, u, v, tri_id int32), a miss (INF, 0, 0, -1). The first
+    minimal t wins a tie (``torch.argmin``, as ``jnp.argmin``)."""
+    r, nt = orig.shape[0], tri_p0.shape[0]
+    step = max(1, BRUTE_BLOCK // max(nt, 1))
+    outs = []
+    for s in range(0, r, step):
+        o, d = orig[s:s + step], dirn[s:s + step]
+        t, u, v, _ = moller_trumbore(o[:, None, :], d[:, None, :], tri_p0[None], tri_e1[None],
+                                     tri_e2[None], backface_cull)
+        tid = torch.argmin(t, dim=1, keepdim=True)
+        t_best = t.gather(1, tid)[:, 0]
+        found = t_best < INF
+        outs.append((t_best, torch.where(found, u.gather(1, tid)[:, 0], 0.0),
+                     torch.where(found, v.gather(1, tid)[:, 0], 0.0),
+                     torch.where(found, tid[:, 0], -1).to(torch.int32)))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 def safe_inv_dir(dirn: torch.Tensor) -> torch.Tensor:

@@ -20,17 +20,30 @@ Two hit paths, chosen by the accel:
 - The gather path: ``nearest_hit_ids`` walks a ``WideBVH`` (``make_accel``,
   the trainer's accel) with ``wide_exact``, a ``TreePack`` with
   ``ppacket`` and a binary ``BVH`` with the plain ``bvh_first_hit`` for
-  integer hit ids, and the differentiable ``resolve_hit`` recomputes the
-  hit from them. The ids are what each bounce keeps for the backward. A
-  ``HybridAccel`` walks its ``wide`` half for the camera bounce and its
-  ``pack`` half for the later ones.
+  integer hit ids, or with no accel tests every triangle
+  (``first_triangle_hit``, plain PyTorch as in the reference), and the
+  differentiable ``resolve_hit`` recomputes the hit from them. The ids are
+  what each bounce keeps for the backward. A ``HybridAccel`` walks its
+  ``wide`` half for the camera bounce and its ``pack`` half for the later
+  ones.
+
+Next-event estimation (``nee``): at every live hit one light is picked
+uniformly from the spheres and the emissive triangles (area lights, found
+on the concrete scene by ``_static_tri_lights``), a point on it is
+sampled, and a shadow ray adds the light's share when nothing else blocks
+it; hit emission then counts only on the camera bounce. The shadow rays
+take the accel's own query: ``wide_shade`` (its ``t`` plane) for a
+``ShadedWideBVH``, ``nearest_hit_ids`` for the gather accels.
 
 Gradients follow the detached-visibility convention: which primitive a ray
-hits carries no derivative; t, barycentrics, normals and material
-constants do, down to vertices, vertex normals, emission, albedo and
-scatter. When autograd records the trace, each bounce's shading runs under
-``torch.utils.checkpoint`` with the hit call outside it: the backward
-recomputes the cheap elementwise shading and reuses the saved hit.
+hits, and whether a shadow ray is blocked, carry no derivative; t,
+barycentrics, normals, material constants and the light sample do, down to
+vertices, vertex normals, emission, albedo and scatter. When autograd
+records the trace, each bounce's shading runs under
+``torch.utils.checkpoint`` with the hit call outside it; the occlusion
+test runs once, in its forward, and keeps its bool plane: the backward
+recomputes the cheap elementwise shading and reuses the saved hit and the
+kept occlusion, so it walks no BVH.
 
 Schedule (the reference's production one): bounce 0, then the first
 diffuse bounce at full width, then ONE compaction (``compact_state``: rows
@@ -45,16 +58,21 @@ Shading convention (shared with the reference and its oracle):
   color += weight * emission[m]; weight *= albedo[m] * attenuation; the
   next direction blends a jittered diffuse and a mirror bounce by scatter.
 
-Not ported yet, and refused with NotImplementedError: NEE, AA jitter,
-textures, explicit uniforms, hit overrides and the brute-force triangle
-path (``accel=None`` with triangles). The reference's TPU schedule
-switches (``ATRAY_*`` environment variables) are not carried: they select
-film-identical variants.
+Explicit uniforms (``uniforms=``, (B, R, 3 or 6) from
+``rng.draw_bounce_uniforms``) replace the keyed draw for oracle
+comparisons: each bounce reads the row of the ray's global id, so they
+give the keyed film when drawn from the same key.
+
+Not ported yet, and refused with NotImplementedError: textures. Hit and
+occlusion overrides, progress callbacks and AOVs have no port yet. The
+reference's TPU schedule switches (``ATRAY_*`` environment variables) are
+not carried: they select film-identical variants.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -72,6 +90,7 @@ from atray_tpu_torch.core.intersect import (
     INF,
     cross,
     dot,
+    first_triangle_hit,
     moller_trumbore,
     normalize,
     plane_hits,
@@ -89,7 +108,7 @@ from atray_tpu_torch.kernels.treelet_pairs import treelet_pair_hit
 from atray_tpu_torch.kernels.wide_exact import wide_exact_first_hit
 from atray_tpu_torch.kernels.wide_shade import wide_shade_planes
 from atray_tpu_torch.render.rng import ray_uniform_cols, split
-from atray_tpu_torch.scene.data import Scene
+from atray_tpu_torch.scene.data import Scene, to_numpy
 
 # primitive type codes of a hit record (the reference's)
 PRIM_NONE = 0
@@ -356,21 +375,12 @@ class _FusedHit(torch.autograd.Function):
         return (None, None, *(next(grads) if r else None for r in need), None)
 
 
-def fused_hit(scene: Scene, accel: Optional[ShadedWideBVH], face_table,
-              ox, oy, oz, dx, dy, dz, alive, pair: bool = False):
+def fused_hit(accel: ShadedWideBVH, face_table, ox, oy, oz, dx, dy, dz, alive,
+              pair: bool = False):
     """Triangle-class nearest hit over a ``ShadedWideBVH``:
     (t, nx, ny, nz, face id, material id) as flat planes; ``pair`` takes
     the pair-binned traversal."""
-    if scene.mesh.num_faces > 0:
-        if accel is None:
-            raise NotImplementedError(
-                "accel=None with triangles: the brute-force triangle path is not "
-                "ported yet; pass build_shaded_accel(scene) or make_accel(...)")
-        return _FusedHit.apply(accel, pair, face_table, ox, oy, oz, dx, dy, dz, alive)
-    t = torch.full_like(ox, INF)
-    zero = torch.zeros_like(ox)
-    fid = torch.full(ox.shape, -1, dtype=torch.int32, device=ox.device)
-    return t, zero, zero, zero, fid, torch.zeros_like(fid)
+    return _FusedHit.apply(accel, pair, face_table, ox, oy, oz, dx, dy, dz, alive)
 
 
 def _shade_fused(scene, face_table, ox, oy, oz, dx, dy, dz, t, nx, ny, nz, fid, mat):
@@ -391,9 +401,9 @@ def nearest_hit_ids(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
                     accel=None) -> HitIds:
     """Nearest primitive per ray over every class: triangles through the
     accel's walk (``wide_exact`` for a ``WideBVH``, ``ppacket`` for a
-    ``TreePack``, ``bvh_first_hit`` for a ``BVH``), then spheres, then
-    planes, a later class winning only on a strictly smaller t. Detached by
-    intent."""
+    ``TreePack``, ``bvh_first_hit`` for a ``BVH``, every triangle by brute
+    force for None), then spheres, then planes, a later class winning only
+    on a strictly smaller t. Detached by intent."""
     o = orig.detach().contiguous()
     d = dirn.detach().contiguous()
     r = o.shape[0]
@@ -409,10 +419,8 @@ def nearest_hit_ids(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
 
     if scene.mesh.num_faces > 0:
         if accel is None:
-            raise NotImplementedError(
-                "accel=None with triangles: the brute-force triangle path is not "
-                "ported yet; pass make_accel(...)")
-        if isinstance(accel, WideBVH):
+            t, _, _, tid = first_triangle_hit(o, d, *scene.triangle_soa())
+        elif isinstance(accel, WideBVH):
             t, _, _, tid = wide_exact_first_hit(accel, o, d)
         elif isinstance(accel, TreePack):
             t, _, _, tid = ppacket_first_hit(accel, o, d)
@@ -500,12 +508,137 @@ def _shade_standard(scene, face_table, ox, oy, oz, dx, dy, dz, prim_type, prim_i
 # ---------------------------------------------------------------------------
 
 
-def _shade_bounce(scene, face_table, shade_hit, key, b, ox, oy, oz, dx, dy, dz,
-                  wr, wg, wb, cr, cg, cb, alive, gid, *hit):
+class Lights(NamedTuple):
+    """The NEE light set of a trace: the scene's ``spheres`` (a count;
+    sphere ids come first) and the face ids of its emissive triangles
+    (``tri``, an int64 tensor on the rays' device, or None)."""
+
+    spheres: int
+    tri: Optional[torch.Tensor]
+
+    @property
+    def count(self) -> int:
+        return self.spheres + (0 if self.tri is None else int(self.tri.shape[0]))
+
+
+def _static_tri_lights(scene: Scene) -> Optional[np.ndarray]:
+    """Face ids of the emissive triangles (the area lights of NEE) from the
+    concrete scene, as int32 numpy, or None where there are none."""
+    em = to_numpy(scene.materials.emission)
+    mid = to_numpy(scene.mesh.material_id)
+    if em.size == 0 or mid.size == 0:
+        return None
+    ids = np.flatnonzero(em.max(axis=1)[mid] > 0.0)
+    return ids.astype(np.int32) if ids.size else None
+
+
+def _nee_lights(scene: Scene, nee: bool, dev) -> Optional[Lights]:
+    """The trace's ``Lights``, or None where NEE is off or the scene has no
+    light; the area lights are found on the concrete scene, once a trace."""
+    if not nee:
+        return None
+    tri_ids = _static_tri_lights(scene)
+    tri = None if tri_ids is None else torch.as_tensor(tri_ids, device=dev).long()
+    lights = Lights(scene.spheres.count, tri)
+    return lights if lights.count > 0 else None
+
+
+def _light_sample(scene, face_table, lights: Lights, u_pick, u_a, u_b):
+    """One light per ray, picked uniformly, and a uniform point on it from
+    two uniforms: (px, py, pz, sphere radius, emission [r, g, b], the
+    sphere id the shadow ray may hit (-1 for a triangle), whether it is a
+    triangle, the triangle's normal [x, y, z] and area, both None without
+    area lights). Differentiable in the light's geometry and emission."""
+    ns, nl = lights.spheres, lights.count
+    em = scene.materials.emission
+    lid = torch.clamp_max(((u_pick + 1.0) * 0.5 * nl).to(torch.int32), nl - 1)
+    is_tri = lid >= ns
+    if ns > 0:
+        cen = scene.spheres.centers
+        lem_tab = _rows(em, scene.spheres.material_id.long())
+        slid = torch.clamp(lid, 0, ns - 1)
+        lr = onehot_rows(slid, scene.spheres.radii)
+        lem = [onehot_rows(slid, lem_tab[:, k]) for k in range(3)]
+        z = u_a
+        phi = (u_b + 1.0) * math.pi
+        s = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+        px = onehot_rows(slid, cen[:, 0]) + lr * (s * torch.cos(phi))
+        py = onehot_rows(slid, cen[:, 1]) + lr * (s * torch.sin(phi))
+        pz = onehot_rows(slid, cen[:, 2]) + lr * z
+        occl_lid = slid
+    else:
+        px = py = pz = lr = torch.zeros_like(u_pick)
+        lem = [px, px, px]
+        occl_lid = torch.full_like(lid, -1)
+    nl3 = area = None
+    if lights.tri is not None:
+        nt = lights.tri.shape[0]
+        rows_l = _rows(face_table, lights.tri)                    # (nt, 20)
+        em_l = _rows(em, rows_l[:, 18].detach().long())
+        cr_l = cross(rows_l[:, 3:6], rows_l[:, 6:9])
+        len_l = torch.sqrt(torch.clamp_min((cr_l * cr_l).sum(dim=1), 1.0e-20))
+        nrm_l = cr_l / len_l[:, None]
+        tlid = torch.clamp(lid - ns, 0, nt - 1)
+        r1 = (u_a + 1.0) * 0.5
+        r2 = (u_b + 1.0) * 0.5
+        su = torch.sqrt(torch.clamp_min(r1, 0.0))
+        b1 = su * (1.0 - r2)
+        b2 = su * r2
+
+        def lrow(k):
+            return onehot_rows(tlid, rows_l[:, k])
+
+        px = torch.where(is_tri, lrow(0) + b1 * lrow(3) + b2 * lrow(6), px)
+        py = torch.where(is_tri, lrow(1) + b1 * lrow(4) + b2 * lrow(7), py)
+        pz = torch.where(is_tri, lrow(2) + b1 * lrow(5) + b2 * lrow(8), pz)
+        lem = [torch.where(is_tri, onehot_rows(tlid, em_l[:, k]), lem[k]) for k in range(3)]
+        occl_lid = torch.where(is_tri, -1, occl_lid)
+        nl3 = [onehot_rows(tlid, nrm_l[:, k]) for k in range(3)]
+        area = onehot_rows(tlid, 0.5 * len_l)
+    return px, py, pz, lr, lem, occl_lid, is_tri, nl3, area
+
+
+def _merge_light_check(scene, t, ox, oy, oz, dx, dy, dz, dist, lid):
+    """Fold spheres and planes into the shadow rays' triangle-class nearest
+    ``t`` and decide occlusion: blocked by anything nearer than ``dist``
+    that is not the picked light sphere."""
+    is_light = torch.zeros_like(lid, dtype=torch.bool)
+    if scene.spheres.count > 0:
+        ts, sid = _sphere_hits_soa(ox, oy, oz, dx, dy, dz, scene.spheres.centers,
+                                   scene.spheres.radii)
+        is_light = (ts < t) & (sid == lid)
+        t = torch.minimum(t, ts)
+    if scene.planes.count > 0:
+        tp, _ = _plane_hits_soa(ox, oy, oz, dx, dy, dz, scene.planes.normals,
+                                scene.planes.offsets)
+        is_light = is_light & ~(tp < t)
+        t = torch.minimum(t, tp)
+    return (t < dist - 1.0e-3) & ~is_light
+
+
+@torch.no_grad()
+def occlusion(scene: Scene, accel, ox, oy, oz, dx, dy, dz, dist, lid, live) -> torch.Tensor:
+    """True where something other than the picked light blocks the shadow
+    ray before ``dist``: the ``t`` plane of ``wide_shade`` over the
+    ``live`` rays for a ``ShadedWideBVH``, ``nearest_hit_ids`` for the
+    gather accels and for None. Discrete: the inputs are detached."""
+    ox, oy, oz, dx, dy, dz, dist = (x.detach() for x in (ox, oy, oz, dx, dy, dz, dist))
+    if isinstance(accel, ShadedWideBVH):
+        t = wide_shade_planes(accel, ox, oy, oz, dx, dy, dz, live)["t"]
+        return _merge_light_check(scene, t, ox, oy, oz, dx, dy, dz, dist, lid)
+    ids = nearest_hit_ids(scene, torch.stack([ox, oy, oz], dim=1),
+                          torch.stack([dx, dy, dz], dim=1), accel)
+    is_light = (ids.prim_type == PRIM_SPHERE) & (ids.prim_id == lid)
+    return (ids.t < dist - 1.0e-3) & ~is_light
+
+
+def _shade_bounce(scene, face_table, shade_hit, draw, b, lights, occlude, ox, oy, oz,
+                  dx, dy, dz, wr, wg, wb, cr, cg, cb, alive, gid, *hit):
     """Everything of a bounce after the hit query: hit planes from the
-    saved hit, shading, respawn. Pure elementwise work, recomputed in the
-    backward when checkpointed."""
-    u0, u1, u2 = ray_uniform_cols(key, gid, b, 3)
+    saved hit, shading, with ``lights`` the NEE term, respawn. Pure
+    elementwise work, recomputed in the backward when checkpointed.
+    ``occlude`` maps the bounce's shadow rays to their occlusion."""
+    u = draw(gid, b, 3 if lights is None else 6)
     (t, nx, ny, nz, hit_m, emr, emg, emb, alr, alg, alb,
      scat) = shade_hit(scene, face_table, ox, oy, oz, dx, dy, dz, *hit)
 
@@ -523,9 +656,12 @@ def _shade_bounce(scene, face_table, shade_hit, key, b, ox, oy, oz, dx, dy, dz,
     nzo = torch.where(backface, -nz, nz)
     atten = torch.where(backface, 0.0, cos_in)
 
-    cr = cr + torch.where(live_hit, wr * emr, 0.0)
-    cg = cg + torch.where(live_hit, wg * emg, 0.0)
-    cb = cb + torch.where(live_hit, wb * emb, 0.0)
+    # with NEE the lights' share arrives by shadow rays: hit emission
+    # counts only on the camera bounce
+    if lights is None or b == 0:
+        cr = cr + torch.where(live_hit, wr * emr, 0.0)
+        cg = cg + torch.where(live_hit, wg * emg, 0.0)
+        cb = cb + torch.where(live_hit, wb * emb, 0.0)
 
     # t is INF on misses: zero it so the untaken branch stays finite
     t_safe = torch.where(hit_m, t, 0.0)
@@ -533,11 +669,37 @@ def _shade_bounce(scene, face_table, shade_hit, key, b, ox, oy, oz, dx, dy, dz,
     hy = oy + t_safe * dy
     hz = oz + t_safe * dz
 
+    if lights is not None:
+        px, py, pz, lr, lem, occl_lid, is_tri, nl3, area = _light_sample(
+            scene, face_table, lights, u[3], u[4], u[5])
+        tx, ty, tz = px - hx, py - hy, pz - hz
+        dist = torch.sqrt(torch.clamp_min(tx * tx + ty * ty + tz * tz, 1.0e-12))
+        ldx, ldy, ldz = tx / dist, ty / dist, tz / dist
+        cos_l = torch.clamp_min(nxo * ldx + nyo * ldy + nzo * ldz, 0.0)
+        # dead lanes get parked shadow rays
+        occluded = occlude(
+            torch.where(live_hit, hx, 1.0e7), torch.where(live_hit, hy, 1.0e7),
+            torch.where(live_hit, hz, 1.0e7), torch.where(live_hit, ldx, 0.0),
+            torch.where(live_hit, ldy, 0.0), torch.where(live_hit, ldz, 1.0),
+            dist, occl_lid, live_hit)
+        nl = lights.count
+        gain = cos_l * ((lr * lr) / torch.maximum(dist * dist, lr * lr)) * nl
+        if nl3 is not None:
+            # area light: receiver cosine x |light cosine| (two-sided) x
+            # area / squared distance
+            cos_lt = torch.abs(nl3[0] * ldx + nl3[1] * ldy + nl3[2] * ldz)
+            gain_t = cos_l * cos_lt * area / torch.clamp_min(dist * dist, 1.0e-12) * nl
+            gain = torch.where(is_tri, gain_t, gain)
+        lit = live_hit & ~occluded
+        cr = cr + torch.where(lit, wr * alr * lem[0] * gain, 0.0)
+        cg = cg + torch.where(lit, wg * alg * lem[1] * gain, 0.0)
+        cb = cb + torch.where(lit, wb * alb * lem[2] * gain, 0.0)
+
     wr = torch.where(live_hit, wr * alr * atten, wr)
     wg = torch.where(live_hit, wg * alg * atten, wg)
     wb = torch.where(live_hit, wb * alb * atten, wb)
 
-    ndx, ndy, ndz = _bounce_dir_soa(dx, dy, dz, nxo, nyo, nzo, scat, u0, u1, u2)
+    ndx, ndy, ndz = _bounce_dir_soa(dx, dy, dz, nxo, nyo, nzo, scat, u[0], u[1], u[2])
     alive = live_hit
     # park dead rays far outside the scene, pointing +z
     return (torch.where(alive, hx, 1.0e7), torch.where(alive, hy, 1.0e7),
@@ -552,39 +714,77 @@ def _records(scene: Scene, *xs: torch.Tensor) -> bool:
         x.requires_grad for x in (*xs, *scene.params().leaves()))
 
 
-def _face_table_for(scene: Scene, accel, record: bool) -> Optional[torch.Tensor]:
+def _face_table_for(scene: Scene, accel, record: bool,
+                    lights: Optional[Lights] = None) -> Optional[torch.Tensor]:
     """The face table where a pass reads it: the gather path's
-    ``resolve_hit`` always, the fused hit's backward replay only when
-    autograd records."""
-    if record or isinstance(accel, (*_GATHER_ACCELS, HybridAccel)):
+    ``resolve_hit`` and the area lights' sample always, the fused hit's
+    backward replay only when autograd records."""
+    if (record or accel is None or isinstance(accel, (*_GATHER_ACCELS, HybridAccel))
+            or (lights is not None and lights.tri is not None)):
         return build_face_table(scene)
     return None
 
 
-def bounce_step(scene: Scene, accel, face_table, st: WaveState, b: int, key,
-                pair: bool = False) -> WaveState:
+Draw = Callable[[torch.Tensor, int, int], Tuple[torch.Tensor, ...]]
+
+
+def _drawer(key, uniforms: Optional[torch.Tensor], ray_ids: torch.Tensor) -> Draw:
+    """``draw(gid, b, channels)``: the bounce's uniform columns of the rays
+    with global ids ``gid``, hashed from ``key`` or read from the explicit
+    (B, R, C) ``uniforms`` at row ``gid - ray_ids[0]`` (ids are a
+    contiguous block before compaction permutes them; a dead packed lane's
+    row is clamped into the block, its numbers unused)."""
+    if uniforms is None:
+        if key is None:
+            raise ValueError("need key or uniforms for stochastic bounces")
+        return lambda gid, b, c: ray_uniform_cols(key, gid, b, c)
+    gid0 = ray_ids[0].long()
+    n = uniforms.shape[1]
+
+    def draw(gid, b, c):
+        if c > uniforms.shape[2]:
+            raise ValueError(f"uniforms have {uniforms.shape[2]} channels, the bounce needs {c}")
+        rows = torch.clamp(gid.long() - gid0, 0, n - 1)
+        uni = torch.index_select(uniforms[b], 0, rows)
+        return tuple(uni[:, k] for k in range(c))
+
+    return draw
+
+
+def bounce_step(scene: Scene, accel, face_table, st: WaveState, b: int, draw: Draw,
+                pair: bool = False, lights: Optional[Lights] = None) -> WaveState:
     """One wavefront bounce over flat (R,) planes: the hit query (with
     ``pair``, the pair-binned one), then ``_shade_bounce``, checkpointed
-    when autograd records it."""
+    when autograd records it. With ``lights`` the checkpointed shading
+    gets an occluder that keeps the bool plane of its first call: the
+    forward walks the shadow rays once and the backward's recompute reads
+    the kept plane, so the backward walks no BVH."""
     ox, oy, oz, dx, dy, dz = st.ox, st.oy, st.oz, st.dx, st.dy, st.dz
     # rays cast = live paths entering the bounce
     rc = st.rc + st.alive.sum()
-    if isinstance(accel, _GATHER_ACCELS):
+    if accel is None or isinstance(accel, _GATHER_ACCELS):
         ids = nearest_hit_ids(scene, torch.stack([ox, oy, oz], dim=1),
                               torch.stack([dx, dy, dz], dim=1), accel)
         hit, shade_hit = tuple(ids), _shade_standard
     else:
-        hit = fused_hit(scene, accel, face_table, ox, oy, oz, dx, dy, dz, st.alive, pair)
+        hit = fused_hit(accel, face_table, ox, oy, oz, dx, dy, dz, st.alive, pair)
         shade_hit = _shade_fused
 
+    kept = []
+
+    def occlude(*shadow):
+        # the first call walks; the checkpoint's recompute reads its plane
+        if not kept:
+            kept.append(occlusion(scene, accel, *shadow))
+        return kept[0]
+
     def shade(*planes):
-        return _shade_bounce(scene, face_table, shade_hit, key, b, *planes)
+        return _shade_bounce(scene, face_table, shade_hit, draw, b, lights, occlude, *planes)
 
     args = (*st[:14], *hit)
-    if _records(scene, *st[:12]):
-        out = checkpoint(shade, *args, use_reentrant=False)
-    else:
-        out = shade(*args)
+    if not _records(scene, *st[:12]):
+        return WaveState(*shade(*args), st.gid, rc)
+    out = checkpoint(shade, *args, use_reentrant=False)
     return WaveState(*out, st.gid, rc)
 
 
@@ -688,12 +888,6 @@ def compact_state(scene: Scene, st: WaveState, lane_pack: bool) -> Tuple[WaveSta
     return st, restore
 
 
-def _refuse(nee=False, anti_aliasing=False):
-    for name, on in (("nee", nee), ("anti_aliasing", anti_aliasing)):
-        if on:
-            raise NotImplementedError(f"{name}=True is not ported yet")
-
-
 def _accel_on(accel, dev: torch.device):
     """A host accel uploaded to ``dev``; an uploaded one must be there."""
     if accel is None:
@@ -722,22 +916,23 @@ def _split_accel(accel, pair_bounces: bool):
 
 
 def trace_radiance(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
-                   bounce_limit: int, key, accel=None,
-                   sort_rays: bool = False, nee: bool = False,
+                   bounce_limit: int, key=None, uniforms: Optional[torch.Tensor] = None,
+                   accel=None, sort_rays: bool = False, nee: bool = False,
                    return_stats: bool = False,
                    ray_ids: Optional[torch.Tensor] = None,
                    lane_pack: bool = True, pair_bounces: bool = False):
     """Path-trace each ray to its radiance (R, 3) on the rays' device (the
-    scene and a host accel are moved there). ``accel`` is a
+    scene, a host accel and ``uniforms`` are moved there). ``accel`` is a
     ``ShadedWideBVH`` (fused hit; ``pair_bounces`` takes the pair-binned
-    traversal after the camera bounce) or a ``WideBVH``, ``TreePack``,
-    ``BVH`` or ``HybridAccel`` (gather path). ``key``
-    is the uint32[2] bounce key; ``ray_ids`` (default 0..R-1) are the global
-    ids that key the per-ray random numbers. Differentiable with respect
-    to the scene's float leaves and the rays. With ``return_stats`` also
-    returns ``{"rays_cast": int64 tensor}``, the live paths summed over
-    bounces."""
-    _refuse(nee=nee)
+    traversal after the camera bounce), a ``WideBVH``, ``TreePack``,
+    ``BVH`` or ``HybridAccel`` (gather path), or None (every triangle by
+    brute force). ``key`` is the uint32[2] bounce key; ``ray_ids``
+    (default 0..R-1) are the global ids that key the per-ray random
+    numbers. ``uniforms`` (B, R, 3, or 6 with NEE, in [-1, 1)) replaces the
+    keyed draw, and then ``key`` may be None. ``nee`` adds next-event
+    estimation to the spheres and the emissive triangles. Differentiable with respect to the scene's float leaves
+    and the rays. With ``return_stats`` also returns ``{"rays_cast": int64
+    tensor}``, the live paths summed over bounces."""
     if scene.texture is not None:
         raise NotImplementedError("textured scenes are not ported yet")
     dev = orig.device
@@ -745,16 +940,20 @@ def trace_radiance(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
     accel = _accel_on(accel, dev)
     if ray_ids is None:
         ray_ids = torch.arange(orig.shape[0], dtype=torch.int32, device=dev)
-    face_table = _face_table_for(scene, accel, _records(scene, orig, dirn))
+    if uniforms is not None:
+        uniforms = torch.as_tensor(uniforms, dtype=torch.float32, device=dev)
+    lights = _nee_lights(scene, nee, dev)
+    face_table = _face_table_for(scene, accel, _records(scene, orig, dirn), lights)
     color, rays_cast = _trace(scene, accel, face_table, orig, dirn, ray_ids,
-                              bounce_limit, key, sort_rays, lane_pack, pair_bounces)
+                              bounce_limit, _drawer(key, uniforms, ray_ids), sort_rays,
+                              lane_pack, pair_bounces, lights)
     if return_stats:
         return color, {"rays_cast": rays_cast}
     return color
 
 
-def _trace(scene, accel, face_table, orig, dirn, ray_ids, bounce_limit, key,
-           sort_rays, lane_pack, pair_bounces=False):
+def _trace(scene, accel, face_table, orig, dirn, ray_ids, bounce_limit, draw,
+           sort_rays, lane_pack, pair_bounces=False, lights=None):
     """The bounce loop of ``trace_radiance`` on a scene and accel already on
     the rays' device: (color (R, 3), rays_cast)."""
     dev = orig.device
@@ -772,8 +971,8 @@ def _trace(scene, accel, face_table, orig, dirn, ray_ids, bounce_limit, key,
     primary, later, pair = _split_accel(accel, pair_bounces)
 
     def step(st, b):
-        return bounce_step(scene, later if b else primary, face_table, st, b, key,
-                           pair=pair and b > 0)
+        return bounce_step(scene, later if b else primary, face_table, st, b, draw,
+                           pair=pair and b > 0, lights=lights)
 
     start = 0
     if bounce_limit > 0:
@@ -823,18 +1022,25 @@ def from_tile_order(x: torch.Tensor, w: int, h: int, spp: int) -> torch.Tensor:
     return t.permute(2, 0, 3, 1, 4, 5).reshape(-1, c)
 
 
-def _trace_chunked(scene, orig, dirn, ray_ids, settings: RenderSettings, key, accel):
+def _trace_chunked(scene, orig, dirn, ray_ids, settings: RenderSettings, key, accel,
+                   uniforms=None):
     """Trace a flat ray set in chunks of ``settings.ray_chunk`` (a Python
-    loop; the last chunk is padded with parked rays), on a scene and accel
-    already on the rays' device. The face table is built once for all
-    chunks. Returns (color (N, 3), rays_cast)."""
+    loop; the last chunk is padded with parked rays and zero uniforms), on
+    a scene, accel and ``uniforms`` already on the rays' device. The face
+    table and the light set are built once for all chunks. Returns (color
+    (N, 3), rays_cast)."""
     n = orig.shape[0]
     chunk = settings.ray_chunk
-    face_table = _face_table_for(scene, accel, _records(scene, orig, dirn))
-    bounce_args = (settings.bounce_limit, key, settings.sort_bounces, settings.lane_pack,
-                   settings.pair_bounces)
+    lights = _nee_lights(scene, settings.nee, orig.device)
+    face_table = _face_table_for(scene, accel, _records(scene, orig, dirn), lights)
+
+    def trace(o, d, ids, un):
+        return _trace(scene, accel, face_table, o, d, ids, settings.bounce_limit,
+                      _drawer(key, un, ids), settings.sort_bounces, settings.lane_pack,
+                      settings.pair_bounces, lights)
+
     if not chunk or chunk >= n:
-        return _trace(scene, accel, face_table, orig, dirn, ray_ids, *bounce_args)
+        return trace(orig, dirn, ray_ids, uniforms)
     pad = (-n) % chunk
     if pad:
         dev = orig.device
@@ -843,10 +1049,13 @@ def _trace_chunked(scene, orig, dirn, ray_ids, settings: RenderSettings, key, ac
         dirn = torch.cat([dirn, park.expand(pad, 3)])
         ray_ids = torch.cat([ray_ids, ray_ids[-1] + 1 + torch.arange(
             pad, dtype=ray_ids.dtype, device=dev)])
+        if uniforms is not None:
+            uniforms = torch.cat([uniforms, uniforms.new_zeros(
+                (uniforms.shape[0], pad, uniforms.shape[2]))], dim=1)
     colors, rays_cast = [], 0
     for s in range(0, orig.shape[0], chunk):
-        color, rc = _trace(scene, accel, face_table, orig[s:s + chunk], dirn[s:s + chunk],
-                           ray_ids[s:s + chunk], *bounce_args)
+        color, rc = trace(orig[s:s + chunk], dirn[s:s + chunk], ray_ids[s:s + chunk],
+                          None if uniforms is None else uniforms[:, s:s + chunk])
         colors.append(color)
         rays_cast = rays_cast + rc
     return torch.cat(colors)[:n], rays_cast
@@ -860,15 +1069,16 @@ def clip01(x: torch.Tensor) -> torch.Tensor:
 
 
 def render(scene: Scene, camera: Camera, settings: RenderSettings, key,
-           accel=None, return_stats: bool = False, device=None):
+           accel=None, uniforms: Optional[torch.Tensor] = None,
+           return_stats: bool = False, device=None):
     """Full render -> linear-RGB film (H, W, 3) in [0, 1] on ``device``
     (None: "cuda"; "cpu" runs the plain versions of the kernels). A host
     scene or accel is moved there. ``key`` is a uint32[2] key
     (``rng.prng_key(seed)``); it splits into an anti-aliasing key and the
-    bounce key, as in the reference. Differentiable with respect to the
-    scene's float leaves (``Scene.with_params``); the film clamp is
-    ``clip01``."""
-    _refuse(nee=settings.nee, anti_aliasing=settings.anti_aliasing)
+    bounce key, as in the reference. ``uniforms`` ((B, spp*H*W, C) in
+    camera-ray order, ``rng.draw_bounce_uniforms``) replaces the bounce
+    key's draw. Differentiable with respect to the scene's float
+    leaves (``Scene.with_params``); the film clamp is ``clip01``."""
     if scene.texture is not None:
         raise NotImplementedError("textured scenes are not ported yet")
     dev = resolve_device(device)
@@ -876,13 +1086,18 @@ def render(scene: Scene, camera: Camera, settings: RenderSettings, key,
     accel = _accel_on(accel, dev)
     w, h = settings.resolution
     spp = settings.samples_per_pixel
-    _aa_key, bounce_key = split(np.asarray(key, np.uint32))
-    orig, dirn = camera_rays(camera, w, h, spp, device=dev)
+    aa_key, bounce_key = split(np.asarray(key, np.uint32))
+    orig, dirn = camera_rays(camera, w, h, spp, device=dev,
+                             anti_aliasing=settings.anti_aliasing,
+                             key=aa_key if settings.anti_aliasing else None)
     orig = to_tile_order(orig, w, h, spp)
     dirn = to_tile_order(dirn, w, h, spp)
+    if uniforms is not None:
+        uniforms = torch.as_tensor(uniforms, dtype=torch.float32, device=dev)
+        uniforms = torch.stack([to_tile_order(u, w, h, spp) for u in uniforms])
     ray_ids = torch.arange(orig.shape[0], dtype=torch.int32, device=dev)
-    color, rays_cast = _trace_chunked(scene, orig, dirn, ray_ids, settings,
-                                      bounce_key, accel)
+    color, rays_cast = _trace_chunked(scene, orig, dirn, ray_ids, settings, bounce_key,
+                                      accel, uniforms)
     color = from_tile_order(color, w, h, spp)
     film = color.reshape(spp, h, w, 3).mean(dim=0)
     film = clip01(film)

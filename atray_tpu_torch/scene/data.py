@@ -136,6 +136,15 @@ class Scene(_Leaves):
         em = self.materials.emission
         return em.device if isinstance(em, torch.Tensor) else torch.device("cpu")
 
+    def triangle_soa(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(p0, e1, e2), each (T, 3): the Möller–Trumbore form of every face,
+        from the vertex tensors (gathered by ``index_select``)."""
+        v = self.mesh.vertices
+        f = self.mesh.faces.long()
+        p0 = torch.index_select(v, 0, f[:, 0])
+        return (p0, torch.index_select(v, 0, f[:, 1]) - p0,
+                torch.index_select(v, 0, f[:, 2]) - p0)
+
     def params(self) -> "SceneParams":
         """The differentiable leaves."""
         return SceneParams(

@@ -3,6 +3,7 @@
 Outputs are array-equal to the reference generators:
 
 - ``cube()``                 12 triangles
+- ``quad(c00, c10, c11, c01)``  2 triangles (light panels, walls)
 - ``uv_sphere(rows, cols)``  2*rows*cols - 2*cols triangles
 - ``dragon_proxy()``         ~139k triangles: a unit sphere displaced by
                              deterministic multi-frequency sinusoidal noise
@@ -66,6 +67,13 @@ def cube(size: float = 2.0, material: int = 1, smooth: bool = False) -> TriMesh:
         f.append((a, b, c))
         f.append((a, c, d))
     return _mesh(v, np.array(f), material, smooth)
+
+
+def quad(corner00, corner10, corner11, corner01, material: int = 1) -> TriMesh:
+    """A single two-triangle quad, flat shaded."""
+    v = np.array([corner00, corner10, corner11, corner01], np.float64)
+    f = np.array([(0, 1, 2), (0, 2, 3)])
+    return _mesh(v, f, material, smooth=False)
 
 
 def _uv_sphere_np(rows: int, cols: int, radius: float):

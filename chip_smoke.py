@@ -173,6 +173,30 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     mean of warm calls, with its kernels' names and grids from the
     profiler) at one variant of each.
 
+15. the oracle slice (brute force, explicit uniforms, NEE, anti-aliasing)
+    at four configurations the repository has, each at full size: (a)
+    ``bench.py``'s ladder config 1 (``Cube.obj`` through the port's
+    ``load_obj``, 256x256, 1 spp, 1 bounce, ``accel=None``): no kernel and
+    no plain version runs, the film equals the CPU render within 1e-5; (b)
+    ladder config 2 (``Monkey.obj``, a floor, a light sphere, 512x512, 4
+    spp, 3 bounces, NEE, the shaded accel at leaf 16): a warm-up and two
+    timed frames, ``wide_shade`` launched twice a bounce (hits and shadow
+    rays), ``lane_take`` launched, no plain version, the film with sort and
+    lane pack off bit-equal; (c) ``examples/arealight.toml`` built in code
+    (``dragon_proxy(139_000)``, two emissive quads, 1280x720, 16 spp, 4
+    bounces, NEE, chunks of 2*1280*720 rays): timed frames, ``wide_shade``
+    twice a bounce in every chunk, once of them in the shadow-ray call
+    (``wavefront.occlusion``, counted by a spy on it), a profiled frame,
+    bounce 1's shadow-ray launch of one chunk against the plain version
+    under phase 3's rules,
+    the NEE gradient at phase 8's config (forward, forward+backward, ratio,
+    peak memory; the backward launches no ``wide_shade``; ``lane_scatter``
+    launched), and a 48x27 NEE gradient against the CPU plain versions;
+    (d) ``examples/cornell.toml`` with anti-aliasing: the card's jitter
+    bits equal the numpy threefry's, the film finite and unlike the film
+    without AA; (e) on config 2's rays, ``trace_radiance`` with explicit
+    uniforms drawn from a key bit-equal to the keyed trace.
+
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every profile (phases 4, 8, 9, 11, 12) prints device time by kernel
 and, where they ran, the lane kernels' device time and launches. Then a
@@ -184,6 +208,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -2234,6 +2259,489 @@ def phase_probes(dev, gpu):
     return res
 
 
+# phase 15: the oracle slice on the card (brute force, explicit uniforms,
+# NEE with sphere and area lights, anti-aliasing), at bench.py's ladder
+# configs 1 and 2 and the scenes of examples/arealight.toml and
+# examples/cornell.toml, each at its full size
+
+LADDER_CAMERA = ((0.0, 1.0, 0.8), (0.0, -0.2, -4.0))   # bench.py's look_at_camera
+
+
+def _ladder_scene(n):
+    """``bench.py``'s ladder config ``n`` (1 or 2): (scene, settings, camera,
+    accel or None). Config 1: ``Cube.obj`` alone, 256x256, 1 spp, 1 bounce,
+    unsorted, by brute force; config 2: ``Monkey.obj`` on a floor under a
+    light sphere, 512x512, 4 spp, 3 bounces, NEE, the shaded accel at leaf
+    16. Each mesh scaled to 2.4 and centred at (0, -0.3, -4)."""
+    import numpy as np
+
+    from atray_tpu_torch.accel.shaded import build_shaded_accel
+    from atray_tpu_torch.config import KDTreeConfig, RenderSettings
+    from atray_tpu_torch.core.camera import look_at_camera
+    from atray_tpu_torch.scene import build_scene, load_obj
+    from atray_tpu_torch.scene.data import Planes, Spheres, make_materials
+    from atray_tpu_torch.scene.transforms import scale_to, translate_to
+
+    mats = make_materials([
+        ((0.35, 0.45, 0.65), (0.0, 0.0, 0.0), 0.0),   # sky
+        ((0.0, 0.0, 0.0), (0.75, 0.55, 0.35), 0.15),  # body
+        ((0.0, 0.0, 0.0), (0.6, 0.6, 0.65), 0.0),     # floor
+        ((9.0, 8.5, 7.0), (0.0, 0.0, 0.0), 0.0),      # light
+    ])
+    asset = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                         "Cube.obj" if n == 1 else "Monkey.obj")
+    mesh = translate_to(scale_to(load_obj(asset), 2.4), (0.0, -0.3, -4.0))
+    if n == 1:
+        scene = build_scene([mesh], materials=mats)
+        settings = RenderSettings(resolution=(256, 256), samples_per_pixel=1, bounce_limit=1,
+                                  sort_bounces=False)
+        accel = None
+    else:
+        floor = Planes(normals=np.asarray([[0.0, 1.0, 0.0]], np.float32),
+                       offsets=np.asarray([-1.8], np.float32),
+                       material_id=np.asarray([2], np.int32))
+        light = Spheres(centers=np.asarray([[2.5, 3.0, -2.5]], np.float32),
+                        radii=np.asarray([0.6], np.float32),
+                        material_id=np.asarray([3], np.int32))
+        scene = build_scene([mesh], planes=floor, spheres=light, materials=mats)
+        settings = RenderSettings(resolution=(512, 512), samples_per_pixel=4, bounce_limit=3,
+                                  nee=True)
+        accel = build_shaded_accel(scene, KDTreeConfig(leaf_size=16))
+    w, h = settings.resolution
+    cam = look_at_camera(*LADDER_CAMERA, h_fov=0.9, aspect=w / h)
+    return scene, settings, cam, accel
+
+
+def _toml_scene(name):
+    """The scene of ``examples/<name>.toml``, built in code value for value
+    (materials, meshes, spheres, planes, camera, [render], [accel] leaf
+    size 16): (host scene, settings, camera, host shaded accel)."""
+    import numpy as np
+
+    from atray_tpu_torch.accel.shaded import build_shaded_accel
+    from atray_tpu_torch.config import KDTreeConfig, RenderSettings
+    from atray_tpu_torch.core.camera import look_at_camera
+    from atray_tpu_torch.scene import build_scene, procedural
+    from atray_tpu_torch.scene.data import Planes, Spheres, make_materials
+    from atray_tpu_torch.scene.transforms import translate_to
+
+    def floor(offset, material):
+        return Planes(normals=np.asarray([[0.0, 1.0, 0.0]], np.float32),
+                      offsets=np.asarray([offset], np.float32),
+                      material_id=np.asarray([material], np.int32))
+
+    if name == "arealight":
+        mats = make_materials([
+            ((0.02, 0.02, 0.04), (0.0, 0.0, 0.0), 0.0),     # sky
+            ((0.0, 0.0, 0.0), (0.78, 0.62, 0.45), 0.2),     # body
+            ((0.0, 0.0, 0.0), (0.50, 0.52, 0.58), 0.05),    # floor
+            ((16.0, 14.5, 12.0), (0.0, 0.0, 0.0), 0.0),     # warm_panel
+            ((4.0, 5.5, 9.0), (0.0, 0.0, 0.0), 0.0),        # cool_panel
+        ])
+        meshes = [
+            translate_to(procedural.dragon_proxy(target_tris=139_000, material=1),
+                         (0.0, 0.0, -4.0)),
+            procedural.quad((-1.2, 2.3, -5.0), (1.2, 2.3, -5.0), (1.2, 2.3, -3.0),
+                            (-1.2, 2.3, -3.0), material=3),
+            procedural.quad((-3.2, 0.4, -6.4), (-3.2, 2.2, -6.4), (-3.2, 2.2, -2.2),
+                            (-3.2, 0.4, -2.2), material=4),
+        ]
+        scene = build_scene(meshes, planes=floor(-1.8, 2), materials=mats)
+        settings = RenderSettings(resolution=(1280, 720), samples_per_pixel=16, bounce_limit=4,
+                                  nee=True, ray_chunk=2 * 1280 * 720)
+        eye, target, h_fov = (0.4, 1.1, 1.1), (0.0, -0.1, -4.0), 0.85
+    else:
+        mats = make_materials([
+            ((0.30, 0.42, 0.62), (0.0, 0.0, 0.0), 0.0),     # sky
+            ((0.0, 0.0, 0.0), (0.75, 0.72, 0.68), 0.0),     # floor
+            ((0.0, 0.0, 0.0), (0.85, 0.35, 0.25), 0.35),    # body
+            ((6.0, 5.5, 4.5), (0.0, 0.0, 0.0), 0.0),        # light
+            ((0.0, 0.0, 0.0), (0.95, 0.95, 0.95), 1.0),     # mirror
+        ])
+        body = translate_to(procedural.dragon_proxy(target_tris=20_000, material=2),
+                            (0.0, 0.2, -4.0))
+        spheres = Spheres(centers=np.asarray([[2.0, 0.4, -5.2], [-2.2, 2.6, -3.2]], np.float32),
+                          radii=np.asarray([1.0, 0.8], np.float32),
+                          material_id=np.asarray([4, 3], np.int32))
+        scene = build_scene([body], spheres=spheres, planes=floor(-1.2, 1), materials=mats)
+        settings = RenderSettings(resolution=(640, 360), samples_per_pixel=8, bounce_limit=4,
+                                  anti_aliasing=True)
+        eye, target, h_fov = (0.0, 1.2, 1.2), (0.0, 0.1, -4.0), 0.9
+    w, h = settings.resolution
+    cam = look_at_camera(eye, target, h_fov=h_fov, aspect=w / h)
+    return scene, settings, cam, build_shaded_accel(scene, KDTreeConfig(leaf_size=16))
+
+
+def _no_plain(counts, what):
+    if any(c[1] for c in counts.values()):
+        raise AssertionError(f"{what}: a plain version ran on the card: "
+                             f"{ {k: c for k, c in counts.items() if c[1]} }")
+
+
+def _timed_frames(run, keys):
+    """One warm-up frame (key 0), then the counts set to 0 and one timed
+    frame for each key: (warm-up s, [(s, live rays)], counts, last film)."""
+    import torch
+
+    t0 = time.perf_counter()
+    run(0)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    _reset_counts()
+    frames = []
+    for k in keys:
+        t0 = time.perf_counter()
+        film, stats = run(k)
+        live = int(stats["rays_cast"])          # synchronizes
+        frames.append((time.perf_counter() - t0, live))
+    return warm, frames, _read_counts(), film
+
+
+def _frames_line(label, what, warm, frames, gpu):
+    for i, (sec, live) in enumerate(frames):
+        print(f"phase {label} frame {i + 1}: {what}: {sec:.4f} s, live rays {live}, "
+              f"{live / sec:.6g} live rays/s [{gpu}]")
+    print(f"phase {label}: warm-up frame {warm:.4f} s")
+
+
+def phase_ladder_1(dev, gpu):
+    """15a: config 1 by brute force; no kernel runs on this path."""
+    import numpy as np
+    import torch
+
+    from atray_tpu_torch.render.rng import prng_key
+    from atray_tpu_torch.render.wavefront import render
+
+    scene_host, s, cam, _ = _ladder_scene(1)
+    scene = scene_host.to(dev)
+    render(scene, cam, s, prng_key(0), accel=None)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    film = render(scene, cam, s, prng_key(1), accel=None)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = _read_counts()
+    if any(c[0] or c[1] for c in counts.values()):
+        raise AssertionError(f"15a: the brute-force path ran a kernel or a plain version: "
+                             f"{ {k: c for k, c in counts.items() if c[0] or c[1]} }")
+    f = film.cpu().numpy()
+    ref = render(scene_host, cam, s, prng_key(1), accel=None, device="cpu").numpy()
+    err = float(np.abs(f - ref).max())
+    if not np.isfinite(f).all() or err > 1e-5:
+        raise AssertionError(f"15a: film not finite or off the CPU render by {err}")
+    print(f"phase 15a ladder config 1: Cube.obj ({scene.mesh.num_faces} tris), 256x256 x 1 spp x "
+          f"1 bounce, brute force: {sec:.4f} s, no kernel and no plain version ran, film == the "
+          f"CPU render within {err:.3g} (1e-5), std {f.std():.4f} [{gpu}]")
+
+
+def phase_ladder_2(dev, gpu):
+    """15b: config 2 (NEE with a sphere light), timed; 15e: explicit
+    uniforms on its chunk. Returns (accel, scene, counts)."""
+    import numpy as np
+    import torch
+
+    from atray_tpu_torch.core.camera import camera_rays
+    from atray_tpu_torch.render import wavefront
+    from atray_tpu_torch.render.rng import draw_bounce_uniforms, prng_key, split
+
+    t0 = time.perf_counter()
+    scene_host, s, cam, accel_host = _ladder_scene(2)
+    t_build = time.perf_counter() - t0
+    scene, accel = scene_host.to(dev), accel_host.to(dev)
+    (w, h), spp, bounces = s.resolution, s.samples_per_pixel, s.bounce_limit
+
+    def run(k):
+        return wavefront.render(scene, cam, s, prng_key(k), accel=accel, return_stats=True)
+
+    warm, frames, counts, film = _timed_frames(run, (1, 2))
+    if counts["wide_shade"][0] != 2 * bounces * len(frames):
+        raise AssertionError(f"15b: wide_shade launched {counts['wide_shade'][0]} times, not "
+                             f"{2 * bounces} a frame (hits and shadow rays at each bounce)")
+    if counts["lane_take"][0] <= 0:
+        raise AssertionError("15b: lane_take never launched")
+    _no_plain(counts, "15b")
+    f = film.cpu().numpy()
+    if not (np.isfinite(f).all() and f.std() > 0.01):
+        raise AssertionError(f"15b: film not finite or flat (std {f.std()})")
+    off = dataclasses.replace(s, sort_bounces=False, lane_pack=False)
+    plain = wavefront.render(scene, cam, off, prng_key(2), accel=accel)
+    if not torch.equal(film, plain):
+        raise AssertionError("15b: the film with sort and lane pack off differs")
+    _frames_line("15b", f"ladder config 2, Monkey.obj ({scene.mesh.num_faces} tris), floor, "
+                 f"light sphere, {w}x{h} x {spp} spp x {bounces} bounces, NEE", warm, frames, gpu)
+    print(f"phase 15b: host build {t_build:.2f} s; launches over the 2 timed frames wide_shade "
+          f"{counts['wide_shade'][0]} ({2 * bounces} a frame: hits and shadow rays), lane_take "
+          f"{counts['lane_take'][0]}, plain calls 0; film std {f.std():.4f}; film with sort and "
+          f"lane pack off == the default film (torch.equal)")
+
+    # 15e: explicit uniforms drawn from the bounce key give the keyed trace
+    o, d = camera_rays(cam, w, h, spp, device=dev)
+    o, d = wavefront.to_tile_order(o, w, h, spp), wavefront.to_tile_order(d, w, h, spp)
+    key = split(prng_key(5))[1]
+    uni = draw_bounce_uniforms(key, bounces, o.shape[0], 6, device=dev)
+    args = dict(accel=accel, sort_rays=True, lane_pack=True, nee=True)
+    a = wavefront.trace_radiance(scene, o, d, bounces, key, **args)
+    b = wavefront.trace_radiance(scene, o, d, bounces, uniforms=uni, **args)
+    if not torch.equal(a, b):
+        raise AssertionError("15e: trace_radiance(uniforms=...) != trace_radiance(key=...)")
+    print(f"phase 15e explicit uniforms: trace_radiance of config 2's {o.shape[0]} rays (sort + "
+          f"lane pack, NEE) with uniforms=draw_bounce_uniforms(k, {bounces}, R, 6) == with key=k "
+          f"(torch.equal) [{gpu}]")
+    return counts
+
+
+def _shadow_launch(scene, accel, settings, cam, chunk, bounce):
+    """The arguments ``render()`` hands ``wide_shade`` for the shadow rays
+    of ``bounce`` in ``chunk`` (key 0), cloned, and the number of calls
+    each chunk made. The bounce's hit call comes first, then its shadow
+    rays' call (``wavefront.occlusion``)."""
+    import torch
+
+    from atray_tpu_torch.render import wavefront
+    from atray_tpu_torch.render.rng import prng_key
+
+    real = wavefront.wide_shade_planes
+    calls, got = [], []
+    per_chunk = 2 * settings.bounce_limit
+
+    def spy(acc, *args, **kw):
+        if len(calls) == chunk * per_chunk + 2 * bounce + 1:
+            got.extend(a.clone() for a in args)
+        calls.append(1)
+        return real(acc, *args, **kw)
+
+    wavefront.wide_shade_planes = spy
+    try:
+        wavefront.render(scene, cam, settings, prng_key(0), accel=accel)
+        torch.cuda.synchronize()
+    finally:
+        wavefront.wide_shade_planes = real
+    (w, h), spp = settings.resolution, settings.samples_per_pixel
+    chunks = -(-(w * h * spp) // settings.ray_chunk)
+    if len(calls) != chunks * per_chunk or not got:
+        raise AssertionError(f"the NEE frame launched wide_shade {len(calls)} times")
+    return got
+
+
+@contextlib.contextmanager
+def _shadow_spy(into):
+    """While the block runs, append to ``into`` the ``wide_shade`` launches
+    each call of ``wavefront.occlusion`` (the NEE shadow rays) made, read
+    from the wrapper's own count."""
+    from atray_tpu_torch.kernels import _build
+    from atray_tpu_torch.render import wavefront
+
+    real = wavefront.occlusion
+    counter = _build.COUNTERS["wide_shade"]
+
+    def spy(*args, **kw):
+        before = counter.launches
+        out = real(*args, **kw)
+        into.append(counter.launches - before)
+        return out
+
+    wavefront.occlusion = spy
+    try:
+        yield
+    finally:
+        wavefront.occlusion = real
+
+
+def phase_arealight(dev, gpu):
+    """15c: the area-light scene: timed frames, a profile, the shadow-ray
+    launch against the plain version, the gradient. Returns the shadow
+    launch's kernels-line numbers."""
+    import numpy as np
+    import torch
+
+    from atray_tpu_torch.config import RenderSettings
+    from atray_tpu_torch.render.rng import prng_key
+    from atray_tpu_torch.render.wavefront import _static_tri_lights, render
+
+    t0 = time.perf_counter()
+    scene_host, s, cam, accel_host = _toml_scene("arealight")
+    t_build = time.perf_counter() - t0
+    scene, accel = scene_host.to(dev), accel_host.to(dev)
+    (w, h), spp, bounces = s.resolution, s.samples_per_pixel, s.bounce_limit
+    chunks = -(-(w * h * spp) // s.ray_chunk)
+    lights = _static_tri_lights(scene_host)
+
+    shadow = []          # launches of each shadow-ray call in the timed frames
+
+    def run(k):
+        with _shadow_spy(shadow if k else []):
+            return render(scene, cam, s, prng_key(k), accel=accel, return_stats=True)
+
+    warm, frames, counts, film = _timed_frames(run, (1, 2))
+    per_frame = 2 * bounces * chunks
+    if counts["wide_shade"][0] != per_frame * len(frames):
+        raise AssertionError(f"15c: wide_shade launched {counts['wide_shade'][0]} times, not "
+                             f"{per_frame} a frame")
+    shadow_launches = sum(shadow)
+    if shadow != [1] * (bounces * chunks * len(frames)):
+        raise AssertionError(f"15c: the shadow-ray calls launched wide_shade {shadow}, not once "
+                             f"a bounce in every chunk")
+    if counts["lane_take"][0] <= 0:
+        raise AssertionError("15c: lane_take never launched")
+    _no_plain(counts, "15c")
+    f = film.cpu().numpy()
+    if not (np.isfinite(f).all() and f.std() > 0.01):
+        raise AssertionError(f"15c: film not finite or flat (std {f.std()})")
+    _frames_line("15c", f"examples/arealight.toml, dragon_proxy(139_000) + {len(lights)} "
+                 f"triangle lights, floor, {w}x{h} x {spp} spp x {bounces} bounces, NEE, "
+                 f"{chunks} chunks", warm, frames, gpu)
+    print(f"phase 15c: host build {t_build:.2f} s ({scene.mesh.num_faces} tris, "
+          f"{accel_host.num_nodes} wide nodes); launches over the 2 timed frames wide_shade "
+          f"{counts['wide_shade'][0]} ({shadow_launches} of them in the shadow-ray calls: "
+          f"hits and shadow rays at each bounce of every chunk), lane_take {counts['lane_take'][0]}, plain calls 0; film std "
+          f"{f.std():.4f}")
+    frame_s = sum(sec for sec, _ in frames) / len(frames)
+    _profile_frame(lambda: render(scene, cam, s, prng_key(3), accel=accel), frame_s, gpu,
+                   "phase 15c", "one arealight frame")
+
+    # bounce 1's shadow-ray launch of one chunk against the plain version
+    args = _shadow_launch(scene, accel, s, cam, FRAME_CHUNK, 1)
+    err, ms, plain_ms, _, bound = _compare_hits(accel, args[:6], args[6],
+                                                "(phase 15c) shadow rays, bounce 1", gpu)
+    live, rays = int(args[6].sum()), args[6].shape[0]
+    print(f"phase 15c shadow-ray wide_shade (bounce 1, chunk {FRAME_CHUNK}): {live} live of "
+          f"{rays} rays, kernel {ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
+          f"({ms / bound[0]:.2f}x), plain {plain_ms:.1f} ms [{gpu}]")
+    del args, film
+
+    # the gradient at phase 8's config on this scene (960x540 and 48x27
+    # have the scene's 16:9 aspect, so its camera serves)
+    gs = RenderSettings(resolution=(960, 540), samples_per_pixel=4, bounce_limit=3, nee=True,
+                        ray_chunk=0)
+    p = _grad_leaves(scene)
+
+    def loss_of(k):
+        return render(scene.with_params(p), cam, gs, prng_key(k), accel=accel).sum()
+
+    def fwd(k):
+        with torch.no_grad():
+            return float(loss_of(k))
+
+    def fwd_bwd(k):
+        return torch.autograd.grad(loss_of(k), p.leaves())
+
+    fwd(100)
+    fwd_bwd(100)
+    torch.cuda.synchronize()
+    f_runs = [_host_ms(lambda k=k: fwd(k)) / 1e3 for k in (1, 2, 3)]
+    b_runs = [_host_ms(lambda k=k: fwd_bwd(k)) / 1e3 for k in (1, 2, 3)]
+    t_f, t_b = min(f_runs), min(b_runs)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    loss = loss_of(3)
+    torch.cuda.synchronize()
+    fwd_counts = _read_counts()
+    grads = torch.autograd.grad(loss, p.leaves())
+    torch.cuda.synchronize()
+    g_counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if g_counts["wide_shade"][0] != fwd_counts["wide_shade"][0]:
+        raise AssertionError(f"15c gradient: the backward launched wide_shade "
+                             f"({fwd_counts['wide_shade'][0]} -> {g_counts['wide_shade'][0]})")
+    if fwd_counts["wide_shade"][0] != 2 * gs.bounce_limit:
+        raise AssertionError(f"15c gradient: forward wide_shade {fwd_counts['wide_shade'][0]}")
+    if g_counts["lane_scatter"][0] <= 0:
+        raise AssertionError("15c gradient: lane_scatter never launched")
+    _no_plain(g_counts, "15c gradient")
+    names = ("vertices", "normals", "emission", "albedo", "scatter")
+    g = {k: v.cpu().numpy() for k, v in zip(names, grads)}
+    if not all(np.isfinite(v).all() for v in g.values()):
+        raise AssertionError("15c gradient: non-finite")
+    if not all(np.abs(g[k]).max() > 0 for k in ("vertices", "albedo", "emission")):
+        raise AssertionError("15c gradient: a vertex, albedo or emission gradient is zero")
+    light_v = float(np.abs(g["vertices"][scene_host.mesh.num_vertices - 8:]).max())
+    print(f"phase 15c gradient 960x540 x 4 spp x 3 bounces, NEE (2,073,600 rays, one chunk, "
+          f"sort + lane pack): forward {t_f:.4f} s, forward+backward {t_b:.4f} s, ratio "
+          f"{t_b / t_f:.3f} (best of 3: forward {', '.join(f'{x:.4f}' for x in f_runs)}; "
+          f"forward+backward {', '.join(f'{x:.4f}' for x in b_runs)}), max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB [{gpu}]")
+    print(f"phase 15c gradient launches: forward wide_shade {fwd_counts['wide_shade'][0]} "
+          f"(hits and shadow rays), after backward {g_counts['wide_shade'][0]}, lane_scatter "
+          f"{g_counts['lane_scatter'][0]}, plain calls 0; max |g|: "
+          + ", ".join(f"{k} {float(np.abs(v).max()):.4g}" for k, v in g.items())
+          + f"; the light panels' vertices {light_v:.4g}")
+    _profile_frame(lambda: fwd_bwd(4), t_b, gpu, "phase 15c", "one NEE forward+backward")
+
+    # a small NEE gradient on the card against the CPU plain versions
+    small = RenderSettings(resolution=(48, 27), samples_per_pixel=1, bounce_limit=3, nee=True)
+    out = {}
+    for where, sc, ac in (("cuda", scene, accel), ("cpu", scene_host.to("cpu"), accel_host)):
+        q = _grad_leaves(sc)
+        loss = render(sc.with_params(q), cam, small, prng_key(5), accel=ac, device=where).sum()
+        out[where] = [x.cpu().numpy() for x in torch.autograd.grad(loss, q.leaves())]
+    worst = []
+    for k, a, b in zip(names, out["cuda"], out["cpu"]):
+        scale = max(float(np.abs(b).max()), 1e-30)
+        bad = np.abs(a - b) > 1e-4 * scale
+        if bad.mean() > 0.002:
+            raise AssertionError(f"15c 48x27 gradient: {k} differs beyond 1e-4 of max |g| on "
+                                 f"{int(bad.sum())} of {bad.size} values")
+        worst.append(f"{k} {float(np.abs(a - b).max()) / scale:.3g} ({int(bad.sum())} beyond)")
+    print("phase 15c NEE gradient 48x27 x 1 spp x 3 bounces, card vs CPU plain versions, max "
+          "|diff| / max |g|: " + ", ".join(worst))
+    return {"launches": shadow_launches, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound": bound, "rays": rays, "live_rays": live}
+
+
+def phase_cornell(dev, gpu):
+    """15d: the cornell scene with anti-aliasing: the jitter bits against
+    the numpy threefry, the film against the film without AA."""
+    import numpy as np
+    import torch
+
+    from atray_tpu_torch.render.rng import prng_key, random_bits, random_bits_np, split
+    from atray_tpu_torch.render.wavefront import render
+
+    scene_host, s, cam, accel_host = _toml_scene("cornell")
+    scene, accel = scene_host.to(dev), accel_host.to(dev)
+    (w, h), spp, bounces = s.resolution, s.samples_per_pixel, s.bounce_limit
+    aa_key = split(prng_key(1))[0]
+    n = spp * h * w * 2
+    card = random_bits(aa_key, n, dev).cpu().numpy()
+    host = random_bits_np(aa_key, n)
+    if not np.array_equal(card, host.astype(np.int64)):
+        raise AssertionError(f"15d: the card's jitter bits differ from threefry on "
+                             f"{int((card != host).sum())} of {n} words")
+
+    def run(k):
+        return render(scene, cam, s, prng_key(k), accel=accel, return_stats=True)
+
+    warm, frames, counts, film = _timed_frames(run, (1,))
+    if counts["wide_shade"][0] != bounces or counts["lane_take"][0] <= 0:
+        raise AssertionError(f"15d: wide_shade {counts['wide_shade'][0]}, lane_take "
+                             f"{counts['lane_take'][0]} launches")
+    _no_plain(counts, "15d")
+    plain = render(scene, cam, dataclasses.replace(s, anti_aliasing=False), prng_key(1),
+                   accel=accel)
+    f = film.cpu().numpy()
+    if not np.isfinite(f).all() or torch.equal(film, plain):
+        raise AssertionError("15d: the AA film is not finite or equals the film without AA")
+    _frames_line("15d", f"examples/cornell.toml, dragon_proxy(20_000), mirror and light "
+                 f"spheres, floor, {w}x{h} x {spp} spp x {bounces} bounces, anti-aliasing",
+                 warm, frames, gpu)
+    print(f"phase 15d: the card's {n} jitter words == numpy threefry2x32 for the same key; "
+          f"launches wide_shade {counts['wide_shade'][0]}, lane_take {counts['lane_take'][0]}, "
+          f"plain calls 0; film std {f.std():.4f}, max |AA - no AA| "
+          f"{float((film - plain).abs().max()):.4f}")
+
+
+def phase_oracle_slice(dev, gpu):
+    """Phase 15; returns the shadow-ray launch's numbers."""
+    t0 = time.perf_counter()
+    phase_ladder_1(dev, gpu)
+    phase_ladder_2(dev, gpu)
+    shadow = phase_arealight(dev, gpu)
+    phase_cornell(dev, gpu)
+    print(f"phase 15 oracle slice: {time.perf_counter() - t0:.1f} s")
+    return shadow
+
+
 def _entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms, **rays):
     """One entry of the ``kernels`` line; the lineage walks add ``rays``
     (the rays of ``ms`` and ``bound_ms``) and ``plain_rays`` (of
@@ -2307,6 +2815,7 @@ def main() -> int:
         scene, scene_host, accel, dev, gpu)
     lineage = phase_lineage(walks, gpu)
     probes = phase_probes(dev, gpu)
+    shadow = phase_oracle_slice(dev, gpu)
 
     lt_ms, lt_plain, lt_lib = lt[(14, 4_147_200, "pack")]
     n_chunk = 4_147_200
@@ -2316,6 +2825,10 @@ def main() -> int:
         _entry("wide_shade", "atray_tpu_torch/csrc/wide_shade.cu",
                "atray_tpu/kernels/wide_shade.py:43", counts["wide_shade"][0], ws_err,
                ws_ms, ws_plain, ws_bound, None),
+        _entry("wide_shade (NEE shadow rays)", "atray_tpu_torch/csrc/wide_shade.cu",
+               "atray_tpu/kernels/wide_shade.py:43", shadow["launches"], shadow["err"],
+               shadow["ms"], shadow["plain_ms"], shadow["bound"], None, rays=shadow["rays"],
+               live_rays=shadow["live_rays"]),
         _entry("lane_take", "atray_tpu_torch/csrc/lane_take.cu",
                "atray_tpu/kernels/lane_pack.py:202", counts["lane_take"][0], 0.0,
                lt_ms, lt_plain, _bound((2 * 14 + 1) * 4 * n_chunk), lt_lib),

@@ -6,16 +6,19 @@ compared. This script builds the same scene, camera and settings
 (960x540 x 4 spp x 3 bounces, one chunk, sort + lane pack, grads of every
 ``SceneParams`` leaf) through ``chip_smoke.py``'s helpers and prints the
 median, minimum and maximum of 10 runs in three orders, with the caching
-allocator's cudaMalloc/cudaFree counts over each order.
+allocator's cudaMalloc/cudaFree counts over each order. With ``--nee``
+it times phase 15c's gradient instead: the same settings with NEE on the
+scene of ``examples/arealight.toml`` (``chip_smoke._toml_scene``).
 
 Run from the root of a checkout on a CUDA machine:
 
-    python3 scripts/torch_grad_timing.py
+    python3 scripts/torch_grad_timing.py [--nee]
 
 To compare two checkouts, run it in each, alternating (A B B A), in one
 machine session.
 """
 
+import argparse
 import os
 import statistics
 import sys
@@ -35,16 +38,23 @@ REPS = 10
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--nee", action="store_true",
+                    help="phase 15c's NEE gradient on the arealight scene")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_grad_timing: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    scene_host = cs._slice_scene()
-    accel = build_shaded_accel(scene_host, KDTreeConfig(leaf_size=16)).to(dev)
+    if args.nee:
+        scene_host, _, cam, accel_host = cs._toml_scene("arealight")
+    else:
+        scene_host, cam = cs._slice_scene(), cs._bwd_camera()
+        accel_host = build_shaded_accel(scene_host, KDTreeConfig(leaf_size=16))
+    accel = accel_host.to(dev)
     scene = scene_host.to(dev)
     settings = RenderSettings(resolution=(960, 540), samples_per_pixel=4, bounce_limit=3,
-                              ray_chunk=0)
-    cam = cs._bwd_camera()
+                              nee=args.nee, ray_chunk=0)
     p = cs._grad_leaves(scene)
 
     def loss_of(k):

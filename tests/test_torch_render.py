@@ -217,15 +217,19 @@ def test_face_table_camera_tiles_and_film_match_jax():
 
 
 def test_unported_options_raise():
-    scene = scene_from_numpy(_tree(_pack_scene())).to("cpu")
+    # textures are the option still to port: a textured scene raises, from
+    # render() and from trace_radiance(), with and without an accel
+    scene = dataclasses.replace(scene_from_numpy(_tree(_pack_scene())),
+                                texture=np.ones((4, 4, 3), np.float32)).to("cpu")
     accel = build_shaded_accel(scene, KDTreeConfig(leaf_size=8)).to("cpu")
     cam = look_at_camera((0, 0.6, 0.7), (0, 0, -4), h_fov=0.9, aspect=2.0)
-    for opt in ("nee", "anti_aliasing"):
-        s = RenderSettings(resolution=(16, 8), samples_per_pixel=1, **{opt: True})
-        with pytest.raises(NotImplementedError, match=opt):
-            tw.render(scene, cam, s, prng_key(0), accel=accel, device="cpu")
-    with pytest.raises(NotImplementedError, match="accel=None"):
-        tw.render(scene, cam, RenderSettings(resolution=(16, 8)), prng_key(0), device="cpu")
+    s = RenderSettings(resolution=(16, 8), samples_per_pixel=1)
+    for acc in (accel, None):
+        with pytest.raises(NotImplementedError, match="textured"):
+            tw.render(scene, cam, s, prng_key(0), accel=acc, device="cpu")
+    o, d = camera_rays(cam, 16, 8, 1, device="cpu")
+    with pytest.raises(NotImplementedError, match="textured"):
+        tw.trace_radiance(scene, o, d, 2, prng_key(0), accel=accel)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -242,6 +246,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    # the package's 44 modules, dist.train, kernels.wide_exact and the seven
-    # of probes/ among them
-    assert int(out.stdout.strip()) >= 44
+    # the package's 45 modules, dist.train, kernels.wide_exact, the seven
+    # of probes/ and scene.objio among them
+    assert int(out.stdout.strip()) >= 45

@@ -235,6 +235,52 @@ def test_empty_slots_and_pad_records_never_hit(rng):
     np.testing.assert_allclose(t[n:], 2.0, atol=1.0)
 
 
+def test_shadow_ray_occlusion_matches_brute_force(rng):
+    # NEE's shadow rays take wide_shade's t plane over the live hits
+    # (``wavefront.occlusion`` with a ShadedWideBVH, one launch a bounce),
+    # then fold in spheres and planes; by brute force (accel=None) they take
+    # ``nearest_hit_ids`` over every class. Both give the same occlusion.
+    from atray_tpu_torch.render import wavefront as tw
+    from atray_tpu_torch.scene.data import Planes, Spheres, make_materials
+
+    mats = make_materials([((0.3, 0.4, 0.6), (0, 0, 0), 0.0),
+                           ((0, 0, 0), (0.7, 0.5, 0.3), 0.1),
+                           ((5.0, 5.0, 5.0), (0, 0, 0), 0.0)])
+    mesh = procedural.uv_sphere(16, 16, material=1, smooth=True)
+    mesh = dataclasses.replace(mesh, vertices=mesh.vertices + np.float32([0, 0, -4]))
+    lights = Spheres(centers=np.float32([[1.5, 2.0, -4.0], [-2.0, 0.5, -3.0]]),
+                     radii=np.float32([0.4, 0.3]), material_id=np.int32([2, 2]))
+    floor = Planes(normals=np.float32([[0, 1, 0]]), offsets=np.float32([-1.2]),
+                   material_id=np.int32([1]))
+    scene = build_scene([mesh], spheres=lights, planes=floor, materials=mats).to("cpu")
+    accel = build_shaded_accel(scene, KDTreeConfig(leaf_size=8)).to("cpu")
+    # points on the sphere, the floor and in the air, to points on a light
+    n = 1024
+    org = np.concatenate([rng.normal(size=(n // 2, 3)), rng.uniform(-3, 3, (n // 2, 3))])
+    org[: n // 2] = org[: n // 2] / np.linalg.norm(org[: n // 2], axis=1, keepdims=True) * 1.001
+    org = (org + [0.0, 0.0, -4.0]).astype(np.float32)
+    org[::7, 1] = -1.2 + 1e-3
+    lid = rng.integers(0, 2, n).astype(np.int32)
+    tgt = np.float32([[1.5, 2.0, -4.0], [-2.0, 0.5, -3.0]])[lid]
+    tgt = tgt + 0.3 * rng.normal(size=(n, 3)).astype(np.float32) / np.sqrt(3)
+    d = tgt - org
+    dist = np.linalg.norm(d, axis=1).astype(np.float32)
+    d = (d / dist[:, None]).astype(np.float32)
+    lid[::5] = -1                                  # a triangle light: no sphere is it
+    live = rng.uniform(size=n) >= 0.1
+    o = np.where(live[:, None], org, 1.0e7).astype(np.float32)
+    d = np.where(live[:, None], d, np.float32([0, 0, 1])).astype(np.float32)
+    args = (*_planes(o, d), torch.from_numpy(dist), torch.from_numpy(lid),
+            torch.from_numpy(live))
+    before = _build.COUNTERS["wide_shade"].plain_calls
+    fused = tw.occlusion(scene, accel, *args)
+    assert _build.COUNTERS["wide_shade"].plain_calls == before + 1
+    brute = tw.occlusion(scene, None, *args)
+    assert torch.equal(fused, brute)
+    assert not fused[~torch.from_numpy(live)].any()
+    assert 0.1 < float(fused.float().mean()) < 0.9
+
+
 def test_wrapper_checks_inputs_and_builds_nothing_on_cpu(monkeypatch):
     def no_build():
         raise AssertionError("the CPU path must not build the CUDA kernels")
