@@ -1,2 +1,3 @@
 """Renderer: wavefront bounces with path-replay gradients, per-ray random
-numbers, film."""
+numbers, textures, film and BMP output, AOV passes, progressive rendering
+and per-chunk telemetry."""

@@ -1,4 +1,4 @@
-"""Film post-processing and PNG output (``atray_tpu/render/film.py``)."""
+"""Film post-processing, PNG and BMP output (``atray_tpu/render/film.py``)."""
 
 from __future__ import annotations
 
@@ -59,6 +59,37 @@ def save_png(path: str, film, srgb: bool = False, avoid_collision: bool = True) 
     if srgb:
         film = linear_to_srgb(torch.as_tensor(film))
     data = encode_png(to_uint8(film))
+    if avoid_collision:
+        path = unique_path(path)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as fh:
+        fh.write(data)
+    return path
+
+
+def encode_bmp(rgb: np.ndarray) -> bytes:
+    """Minimal 24-bit BMP encoder, the reference's format: BITMAPFILEHEADER
+    and BITMAPINFOHEADER, bottom-up rows, BGR order, rows padded to 4
+    bytes."""
+    h, w, c = rgb.shape
+    if c != 3 or rgb.dtype != np.uint8:
+        raise ValueError("encode_bmp takes (H, W, 3) uint8")
+    row_size = (3 * w + 3) & ~3
+    image_size = row_size * h
+    off = 14 + 40
+    header = struct.pack("<2sIHHI", b"BM", off + image_size, 0, 0, off)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, image_size, 2835, 2835, 0, 0)
+    pad = b"\x00" * (row_size - 3 * w)
+    bgr = rgb[:, :, ::-1]
+    return header + info + b"".join(bgr[y].tobytes() + pad for y in range(h - 1, -1, -1))
+
+
+def save_bmp(path: str, film, srgb: bool = False, avoid_collision: bool = True) -> str:
+    """Write the film to a BMP; returns the path written (collisions as in
+    ``save_png``)."""
+    if srgb:
+        film = linear_to_srgb(torch.as_tensor(film))
+    data = encode_bmp(to_uint8(film))
     if avoid_collision:
         path = unique_path(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

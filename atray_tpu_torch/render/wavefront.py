@@ -7,25 +7,34 @@ flat (R,) plane, as in the reference. Every random number is a pure
 function of (key, global ray id, bounce) (``render/rng.py``), so chunked,
 compacted and whole-frame renders give the same film bit-for-bit.
 
-Two hit paths, chosen by the accel:
+Two hit paths, chosen by the accel and the scene:
 
-- ``ShadedWideBVH`` (the production path): ``wide_shade`` returns t, face
-  id, the interpolated normal and the material id in one kernel call. The
-  call is a ``torch.autograd.Function`` whose backward replays
-  Möller–Trumbore and the normal from the saved face id and the per-trace
-  face table in plain PyTorch, so the backward never walks the BVH again.
-  With ``pair_bounces`` the bounces after the first take the same data
-  from ``treelet_pair_hit`` (the pair-binned traversal) instead; the
-  camera bounce keeps ``wide_shade``, and the backward is the same replay.
-- The gather path: ``nearest_hit_ids`` walks a ``WideBVH`` (``make_accel``,
-  the trainer's accel) with ``wide_exact``, a ``TreePack`` with
-  ``ppacket`` and a binary ``BVH`` with the plain ``bvh_first_hit`` for
-  integer hit ids, or with no accel tests every triangle
+- ``ShadedWideBVH`` on an untextured scene (the production path):
+  ``wide_shade`` returns t, face id, the interpolated normal and the
+  material id in one kernel call. The call is a ``torch.autograd.Function``
+  whose backward replays Möller–Trumbore and the normal from the saved face
+  id and the per-trace face table in plain PyTorch, so the backward never
+  walks the BVH again. With ``pair_bounces`` the bounces after the first
+  take the same data from ``treelet_pair_hit`` (the pair-binned traversal)
+  instead; the camera bounce keeps ``wide_shade``, and the backward is the
+  same replay.
+- The gather path: ``nearest_hit_ids`` walks a ``ShadedWideBVH`` with
+  ``wide_shade`` (its ``t`` and ``id`` planes), a ``WideBVH``
+  (``make_accel``, the trainer's accel) with ``wide_exact``, a ``TreePack``
+  with ``ppacket`` and a binary ``BVH`` with the plain ``bvh_first_hit``
+  for integer hit ids, or with no accel tests every triangle
   (``first_triangle_hit``, plain PyTorch as in the reference), and the
   differentiable ``resolve_hit`` recomputes the hit from them. The ids are
   what each bounce keeps for the backward. A ``HybridAccel`` walks its
   ``wide`` half for the camera bounce and its ``pack`` half for the later
   ones.
+
+A textured scene (``Scene.texture``, with a mesh) takes the gather path
+whatever the accel, as in the reference: the kernel bakes no tex coords.
+Its albedo is modulated by the texel at the hit's interpolated UV
+(``_texture_mod_soa``: nearest texel, wrap addressing, one ``index_select``
+row gather whose index is detached), so the gradient reaches the texels;
+``pair_bounces`` is ignored there.
 
 Next-event estimation (``nee``): at every live hit one light is picked
 uniformly from the spheres and the emissive triangles (area lights, found
@@ -38,7 +47,7 @@ take the accel's own query: ``wide_shade`` (its ``t`` plane) for a
 Gradients follow the detached-visibility convention: which primitive a ray
 hits, and whether a shadow ray is blocked, carry no derivative; t,
 barycentrics, normals, material constants and the light sample do, down to
-vertices, vertex normals, emission, albedo and scatter. When autograd
+vertices, vertex normals, emission, albedo, scatter and texels. When autograd
 records the trace, each bounce's shading runs under
 ``torch.utils.checkpoint`` with the hit call outside it; the occlusion
 test runs once, in its forward, and keeps its bool plane: the backward
@@ -63,15 +72,17 @@ Explicit uniforms (``uniforms=``, (B, R, 3 or 6) from
 comparisons: each bounce reads the row of the ray's global id, so they
 give the keyed film when drawn from the same key.
 
-Not ported yet, and refused with NotImplementedError: textures. Hit and
-occlusion overrides, progress callbacks and AOVs have no port yet. The
-reference's TPU schedule switches (``ATRAY_*`` environment variables) are
-not carried: they select film-identical variants.
+``render(progress_cb=)`` calls the callback once per ray chunk with the
+chunk's rays cast, on the chunked branch only, as the reference does.
+Hit and occlusion overrides (the reference's treelet ring) have no port
+yet. The reference's TPU schedule switches (``ATRAY_*`` environment
+variables) are not carried: they select film-identical variants.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -181,6 +192,51 @@ def build_face_table(scene: Scene) -> Optional[torch.Tensor]:
     return torch.cat([p0, e1, e2, n0, n1, n2, mat, torch.zeros_like(mat)], dim=1)
 
 
+def build_face_uv(scene: Scene) -> Optional[torch.Tensor]:
+    """(T, 8) per-face texture coordinates [u0, v0, u1, v1, u2, v2, has_uv,
+    pad], built once per trace like ``build_face_table``; faces without tex
+    coords get has_uv = 0."""
+    mesh = scene.mesh
+    if mesh.num_faces == 0:
+        return None
+    ft = mesh.face_tex_idx.long()
+    has = (ft[:, 0] >= 0).to(torch.float32)[:, None]
+    tcl = torch.clamp(ft, 0, mesh.tex_coords.shape[0] - 1)
+    tc = mesh.tex_coords
+    uv = torch.cat([_rows(tc, tcl[:, 0]), _rows(tc, tcl[:, 1]), _rows(tc, tcl[:, 2])], dim=1)
+    return torch.cat([uv, has, torch.zeros_like(has)], dim=1)
+
+
+def _mod1(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mod(x, 1.0)``: the truncated remainder, plus 1 where it is
+    negative (``torch.remainder`` rounds differently near the edges, which
+    can move a texel one column over)."""
+    r = torch.fmod(x, 1.0)
+    return torch.where(r < 0.0, r + 1.0, r)
+
+
+def _texture_mod_soa(texture, face_table, face_uv, fid, tri_hit, ox, oy, oz, dx, dy, dz):
+    """Per-ray albedo modulation planes (tr, tg, tb): the texel at the
+    hit's interpolated UV, nearest texel, wrap addressing, v = 0 the
+    image's bottom row; 1.0 where the ray is not a triangle hit or its face
+    has no tex coords. The barycentrics are recomputed with the reference's
+    op order; the texel index is detached, so the gradient reaches the
+    texels through one ``index_select`` row gather."""
+    fcl = torch.clamp(fid, 0, face_table.shape[0] - 1).long()
+    uu, vv, _, _ = _barycentrics(_rows(face_table, fcl), ox, oy, oz, dx, dy, dz)
+    w0 = 1.0 - uu - vv
+    uvrow = _rows(face_uv, fcl)
+    ut = w0 * uvrow[:, 0] + uu * uvrow[:, 2] + vv * uvrow[:, 4]
+    vt = w0 * uvrow[:, 1] + uu * uvrow[:, 3] + vv * uvrow[:, 5]
+    th, tw = texture.shape[0], texture.shape[1]
+    ix = torch.clamp((_mod1(ut) * tw).to(torch.int32), 0, tw - 1)
+    iy = torch.clamp(((1.0 - _mod1(vt)) * th).to(torch.int32), 0, th - 1)
+    idx = (iy * tw + ix).detach().long()
+    texel = _rows(texture.reshape(-1, 3), idx)            # one (R, 3) row gather
+    use = tri_hit & (uvrow[:, 6] > 0.5)
+    return tuple(torch.where(use, texel[:, k], 1.0) for k in range(3))
+
+
 def _norm3(x, y, z, eps: float = 1.0e-20):
     """Component normalize with the reference's op order."""
     r = torch.reciprocal(torch.sqrt(torch.clamp_min(x * x + y * y + z * z, eps)))
@@ -266,6 +322,17 @@ def resolve_material_comps(scene: Scene, mat: torch.Tensor, hit: torch.Tensor):
     )
 
 
+def resolve_material_rows(scene: Scene, mat: torch.Tensor, hit: torch.Tensor):
+    """(emission (R, 3), albedo (R, 3), scatter (R,)) rows for per-ray
+    material ids, miss lanes zeroed (the miss sentinel is material 0, which
+    would otherwise pick up the sky's row)."""
+    h1 = hit[:, None]
+    em = torch.where(h1, onehot_rows(mat, scene.materials.emission), 0.0)
+    al = torch.where(h1, onehot_rows(mat, scene.materials.albedo), 0.0)
+    sc = torch.where(hit, onehot_rows(mat, scene.materials.scatter[:, None])[:, 0], 0.0)
+    return em, al, sc
+
+
 def _patch_spheres_planes(scene, ox, oy, oz, dx, dy, dz, t, nx, ny, nz, hit,
                           emr, emg, emb, alr, alg, alb, scat):
     """Merge the sphere and plane classes into a triangle-class hit."""
@@ -311,12 +378,10 @@ def _patch_spheres_planes(scene, ox, oy, oz, dx, dy, dz, t, nx, ny, nz, hit,
 # ---------------------------------------------------------------------------
 
 
-def _replay_hit(face_table, fid_c, ox, oy, oz, dx, dy, dz):
-    """Differentiable recompute of a fused hit from its face id: t and the
-    normalized barycentric normal, with the kernel's Möller–Trumbore and
-    interpolation op order."""
-    row = _rows(face_table, fid_c)                # one (R, 20) gather
-    p0x, p0y, p0z = row[:, 0], row[:, 1], row[:, 2]
+def _barycentrics(row, ox, oy, oz, dx, dy, dz):
+    """Möller–Trumbore of each ray against its face-table row (``row``,
+    (R, 20)) in the kernel's op order, with no hit test: (u, v, q, 1 / det),
+    q = (o - p0) x e1 as a triple of planes, 1 / det 0 where |det| <= 1e-12."""
     e1x, e1y, e1z = row[:, 3], row[:, 4], row[:, 5]
     e2x, e2y, e2z = row[:, 6], row[:, 7], row[:, 8]
     pvx = dy * e2z - dz * e2y
@@ -325,15 +390,24 @@ def _replay_hit(face_table, fid_c, ox, oy, oz, dx, dy, dz):
     det = e1x * pvx + e1y * pvy + e1z * pvz
     ok = torch.abs(det) > 1.0e-12
     inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
-    tvx = ox - p0x
-    tvy = oy - p0y
-    tvz = oz - p0z
+    tvx = ox - row[:, 0]
+    tvy = oy - row[:, 1]
+    tvz = oz - row[:, 2]
     uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
     qvx = tvy * e1z - tvz * e1y
     qvy = tvz * e1x - tvx * e1z
     qvz = tvx * e1y - tvy * e1x
     vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det
-    tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    return uu, vv, (qvx, qvy, qvz), inv_det
+
+
+def _replay_hit(face_table, fid_c, ox, oy, oz, dx, dy, dz):
+    """Differentiable recompute of a fused hit from its face id: t and the
+    normalized barycentric normal, with the kernel's Möller–Trumbore and
+    interpolation op order."""
+    row = _rows(face_table, fid_c)                # one (R, 20) gather
+    uu, vv, (qvx, qvy, qvz), inv_det = _barycentrics(row, ox, oy, oz, dx, dy, dz)
+    tt = (row[:, 6] * qvx + row[:, 7] * qvy + row[:, 8] * qvz) * inv_det
     w0 = 1.0 - uu - vv
     nx = w0 * row[:, 9] + uu * row[:, 12] + vv * row[:, 15]
     ny = w0 * row[:, 10] + uu * row[:, 13] + vv * row[:, 16]
@@ -398,12 +472,15 @@ def _shade_fused(scene, face_table, ox, oy, oz, dx, dy, dz, t, nx, ny, nz, fid, 
 
 @torch.no_grad()
 def nearest_hit_ids(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
-                    accel=None) -> HitIds:
+                    accel=None, alive: Optional[torch.Tensor] = None) -> HitIds:
     """Nearest primitive per ray over every class: triangles through the
-    accel's walk (``wide_exact`` for a ``WideBVH``, ``ppacket`` for a
+    accel's walk (the ``t`` and ``id`` planes of ``wide_shade`` for a
+    ``ShadedWideBVH``, ``wide_exact`` for a ``WideBVH``, ``ppacket`` for a
     ``TreePack``, ``bvh_first_hit`` for a ``BVH``, every triangle by brute
     force for None), then spheres, then planes, a later class winning only
-    on a strictly smaller t. Detached by intent."""
+    on a strictly smaller t. ``alive`` (bool (R,)) lets ``wide_shade`` skip
+    dead rays, whose triangle class then misses; the other walks ignore it.
+    Detached by intent."""
     o = orig.detach().contiguous()
     d = dirn.detach().contiguous()
     r = o.shape[0]
@@ -420,6 +497,12 @@ def nearest_hit_ids(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
     if scene.mesh.num_faces > 0:
         if accel is None:
             t, _, _, tid = first_triangle_hit(o, d, *scene.triangle_soa())
+        elif isinstance(accel, ShadedWideBVH):
+            if alive is None:
+                alive = torch.ones((r,), dtype=torch.bool, device=o.device)
+            fo = wide_shade_planes(accel, *(o[:, k].contiguous() for k in range(3)),
+                                   *(d[:, k].contiguous() for k in range(3)), alive)
+            t, tid = fo["t"], fo["id"]
         elif isinstance(accel, WideBVH):
             t, _, _, tid = wide_exact_first_hit(accel, o, d)
         elif isinstance(accel, TreePack):
@@ -427,8 +510,8 @@ def nearest_hit_ids(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
         elif isinstance(accel, BVH):
             t, _, _, tid = bvh_first_hit(accel, scene, o, d)
         else:
-            raise TypeError(f"nearest_hit_ids takes a WideBVH, TreePack or BVH, "
-                            f"not {type(accel).__name__}")
+            raise TypeError(f"nearest_hit_ids takes a ShadedWideBVH, WideBVH, TreePack or "
+                            f"BVH, not {type(accel).__name__}")
         merge(t, tid, PRIM_TRI)
     if scene.spheres.count > 0:
         merge(*sphere_hits(o, d, scene.spheres.centers, scene.spheres.radii), PRIM_SPHERE)
@@ -495,12 +578,19 @@ def resolve_hit(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor, ids: HitId
     return t, normal, torch.where(hit, mat, 0), hit
 
 
-def _shade_standard(scene, face_table, ox, oy, oz, dx, dy, dz, prim_type, prim_id, t_hit):
-    """Hit planes of the gather path from the saved ids."""
+def _shade_standard(scene, face_table, ox, oy, oz, dx, dy, dz, prim_type, prim_id, t_hit,
+                    face_uv=None):
+    """Hit planes of the gather path from the saved ids; with ``face_uv``
+    (a textured scene) the albedo is modulated by the scene's texture."""
     o3 = torch.stack([ox, oy, oz], dim=1)
     d3 = torch.stack([dx, dy, dz], dim=1)
     t, n, mat, hit = resolve_hit(scene, o3, d3, HitIds(prim_type, prim_id, t_hit), face_table)
-    return (t, n[:, 0], n[:, 1], n[:, 2], hit, *resolve_material_comps(scene, mat, hit))
+    emr, emg, emb, alr, alg, alb, scat = resolve_material_comps(scene, mat, hit)
+    if face_uv is not None:
+        tr, tg, tb = _texture_mod_soa(scene.texture, face_table, face_uv, prim_id,
+                                      (prim_type == PRIM_TRI) & hit, ox, oy, oz, dx, dy, dz)
+        alr, alg, alb = alr * tr, alg * tg, alb * tb
+    return (t, n[:, 0], n[:, 1], n[:, 2], hit, emr, emg, emb, alr, alg, alb, scat)
 
 
 # ---------------------------------------------------------------------------
@@ -709,20 +799,38 @@ def _shade_bounce(scene, face_table, shade_hit, draw, b, lights, occlude, ox, oy
 
 
 def _records(scene: Scene, *xs: torch.Tensor) -> bool:
-    """Whether autograd records work on ``xs`` and the scene's float leaves."""
+    """Whether autograd records work on ``xs``, the scene's float leaves
+    and its texture."""
+    leaves = (*scene.params().leaves(), scene.texture)
     return torch.is_grad_enabled() and any(
-        x.requires_grad for x in (*xs, *scene.params().leaves()))
+        isinstance(x, torch.Tensor) and x.requires_grad for x in (*xs, *leaves))
+
+
+def _textured(scene: Scene) -> bool:
+    """Whether the scene's texture is sampled (the reference's ``has_tex``):
+    it has one and a mesh to map it on."""
+    return scene.texture is not None and scene.mesh.num_faces > 0
 
 
 def _face_table_for(scene: Scene, accel, record: bool,
                     lights: Optional[Lights] = None) -> Optional[torch.Tensor]:
     """The face table where a pass reads it: the gather path's
-    ``resolve_hit`` and the area lights' sample always, the fused hit's
-    backward replay only when autograd records."""
+    ``resolve_hit`` (every accel on a textured scene), the texture lookup
+    and the area lights' sample always, the fused hit's backward replay
+    only when autograd records."""
     if (record or accel is None or isinstance(accel, (*_GATHER_ACCELS, HybridAccel))
-            or (lights is not None and lights.tri is not None)):
+            or _textured(scene) or (lights is not None and lights.tri is not None)):
         return build_face_table(scene)
     return None
+
+
+def _trace_tables(scene: Scene, accel, nee: bool, orig: torch.Tensor, dirn: torch.Tensor):
+    """What a trace builds once for all its chunks: (the NEE ``Lights`` or
+    None, the face table where a pass reads it, the tex-coord table of a
+    textured scene or None)."""
+    lights = _nee_lights(scene, nee, orig.device)
+    face_table = _face_table_for(scene, accel, _records(scene, orig, dirn), lights)
+    return lights, face_table, build_face_uv(scene) if _textured(scene) else None
 
 
 Draw = Callable[[torch.Tensor, int, int], Tuple[torch.Tensor, ...]]
@@ -752,20 +860,26 @@ def _drawer(key, uniforms: Optional[torch.Tensor], ray_ids: torch.Tensor) -> Dra
 
 
 def bounce_step(scene: Scene, accel, face_table, st: WaveState, b: int, draw: Draw,
-                pair: bool = False, lights: Optional[Lights] = None) -> WaveState:
+                pair: bool = False, lights: Optional[Lights] = None,
+                face_uv: Optional[torch.Tensor] = None) -> WaveState:
     """One wavefront bounce over flat (R,) planes: the hit query (with
     ``pair``, the pair-binned one), then ``_shade_bounce``, checkpointed
-    when autograd records it. With ``lights`` the checkpointed shading
-    gets an occluder that keeps the bool plane of its first call: the
-    forward walks the shadow rays once and the backward's recompute reads
-    the kept plane, so the backward walks no BVH."""
+    when autograd records it. ``face_uv`` (a textured scene) sends every
+    accel down the gather path, whose shading samples the texture. With
+    ``lights`` the checkpointed shading gets an occluder that keeps the
+    bool plane of its first call: the forward walks the shadow rays once
+    and the backward's recompute reads the kept plane, so the backward
+    walks no BVH. The hit ids are taken outside the checkpoint, so the
+    recompute walks nothing for them either."""
     ox, oy, oz, dx, dy, dz = st.ox, st.oy, st.oz, st.dx, st.dy, st.dz
     # rays cast = live paths entering the bounce
     rc = st.rc + st.alive.sum()
-    if accel is None or isinstance(accel, _GATHER_ACCELS):
+    if accel is None or isinstance(accel, _GATHER_ACCELS) or face_uv is not None:
         ids = nearest_hit_ids(scene, torch.stack([ox, oy, oz], dim=1),
-                              torch.stack([dx, dy, dz], dim=1), accel)
-        hit, shade_hit = tuple(ids), _shade_standard
+                              torch.stack([dx, dy, dz], dim=1), accel, alive=st.alive)
+        hit = tuple(ids)
+        shade_hit = (_shade_standard if face_uv is None
+                     else functools.partial(_shade_standard, face_uv=face_uv))
     else:
         hit = fused_hit(accel, face_table, ox, oy, oz, dx, dy, dz, st.alive, pair)
         shade_hit = _shade_fused
@@ -926,15 +1040,14 @@ def trace_radiance(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
     ``ShadedWideBVH`` (fused hit; ``pair_bounces`` takes the pair-binned
     traversal after the camera bounce), a ``WideBVH``, ``TreePack``,
     ``BVH`` or ``HybridAccel`` (gather path), or None (every triangle by
-    brute force). ``key`` is the uint32[2] bounce key; ``ray_ids``
+    brute force); a textured scene takes the gather path with any of them.
+    ``key`` is the uint32[2] bounce key; ``ray_ids``
     (default 0..R-1) are the global ids that key the per-ray random
     numbers. ``uniforms`` (B, R, 3, or 6 with NEE, in [-1, 1)) replaces the
     keyed draw, and then ``key`` may be None. ``nee`` adds next-event
     estimation to the spheres and the emissive triangles. Differentiable with respect to the scene's float leaves
     and the rays. With ``return_stats`` also returns ``{"rays_cast": int64
     tensor}``, the live paths summed over bounces."""
-    if scene.texture is not None:
-        raise NotImplementedError("textured scenes are not ported yet")
     dev = orig.device
     scene = scene.to(dev)
     accel = _accel_on(accel, dev)
@@ -942,20 +1055,20 @@ def trace_radiance(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
         ray_ids = torch.arange(orig.shape[0], dtype=torch.int32, device=dev)
     if uniforms is not None:
         uniforms = torch.as_tensor(uniforms, dtype=torch.float32, device=dev)
-    lights = _nee_lights(scene, nee, dev)
-    face_table = _face_table_for(scene, accel, _records(scene, orig, dirn), lights)
+    lights, face_table, face_uv = _trace_tables(scene, accel, nee, orig, dirn)
     color, rays_cast = _trace(scene, accel, face_table, orig, dirn, ray_ids,
                               bounce_limit, _drawer(key, uniforms, ray_ids), sort_rays,
-                              lane_pack, pair_bounces, lights)
+                              lane_pack, pair_bounces, lights, face_uv)
     if return_stats:
         return color, {"rays_cast": rays_cast}
     return color
 
 
 def _trace(scene, accel, face_table, orig, dirn, ray_ids, bounce_limit, draw,
-           sort_rays, lane_pack, pair_bounces=False, lights=None):
+           sort_rays, lane_pack, pair_bounces=False, lights=None, face_uv=None):
     """The bounce loop of ``trace_radiance`` on a scene and accel already on
-    the rays' device: (color (R, 3), rays_cast)."""
+    the rays' device: (color (R, 3), rays_cast). ``face_uv`` (a textured
+    scene) takes the gather path and no pair bounces."""
     dev = orig.device
     r = orig.shape[0]
     ones = torch.ones(r, dtype=torch.float32, device=dev)
@@ -968,11 +1081,11 @@ def _trace(scene, accel, face_table, orig, dirn, ray_ids, bounce_limit, draw,
         torch.zeros((), dtype=torch.int64, device=dev),
     )
 
-    primary, later, pair = _split_accel(accel, pair_bounces)
+    primary, later, pair = _split_accel(accel, pair_bounces and face_uv is None)
 
     def step(st, b):
         return bounce_step(scene, later if b else primary, face_table, st, b, draw,
-                           pair=pair and b > 0, lights=lights)
+                           pair=pair and b > 0, lights=lights, face_uv=face_uv)
 
     start = 0
     if bounce_limit > 0:
@@ -1023,21 +1136,22 @@ def from_tile_order(x: torch.Tensor, w: int, h: int, spp: int) -> torch.Tensor:
 
 
 def _trace_chunked(scene, orig, dirn, ray_ids, settings: RenderSettings, key, accel,
-                   uniforms=None):
+                   uniforms=None, progress_cb: Optional[Callable[[int], None]] = None):
     """Trace a flat ray set in chunks of ``settings.ray_chunk`` (a Python
     loop; the last chunk is padded with parked rays and zero uniforms), on
     a scene, accel and ``uniforms`` already on the rays' device. The face
-    table and the light set are built once for all chunks. Returns (color
-    (N, 3), rays_cast)."""
+    table, the tex coords and the light set are built once for all chunks.
+    ``progress_cb(rays_cast_of_the_chunk)`` (a Python int, which costs a
+    host sync) is called after each chunk when there are several, as in the
+    reference. Returns (color (N, 3), rays_cast)."""
     n = orig.shape[0]
     chunk = settings.ray_chunk
-    lights = _nee_lights(scene, settings.nee, orig.device)
-    face_table = _face_table_for(scene, accel, _records(scene, orig, dirn), lights)
+    lights, face_table, face_uv = _trace_tables(scene, accel, settings.nee, orig, dirn)
 
     def trace(o, d, ids, un):
         return _trace(scene, accel, face_table, o, d, ids, settings.bounce_limit,
                       _drawer(key, un, ids), settings.sort_bounces, settings.lane_pack,
-                      settings.pair_bounces, lights)
+                      settings.pair_bounces, lights, face_uv)
 
     if not chunk or chunk >= n:
         return trace(orig, dirn, ray_ids, uniforms)
@@ -1058,6 +1172,8 @@ def _trace_chunked(scene, orig, dirn, ray_ids, settings: RenderSettings, key, ac
                           None if uniforms is None else uniforms[:, s:s + chunk])
         colors.append(color)
         rays_cast = rays_cast + rc
+        if progress_cb is not None:
+            progress_cb(int(rc))
     return torch.cat(colors)[:n], rays_cast
 
 
@@ -1070,7 +1186,8 @@ def clip01(x: torch.Tensor) -> torch.Tensor:
 
 def render(scene: Scene, camera: Camera, settings: RenderSettings, key,
            accel=None, uniforms: Optional[torch.Tensor] = None,
-           return_stats: bool = False, device=None):
+           return_stats: bool = False, device=None,
+           progress_cb: Optional[Callable[[int], None]] = None):
     """Full render -> linear-RGB film (H, W, 3) in [0, 1] on ``device``
     (None: "cuda"; "cpu" runs the plain versions of the kernels). A host
     scene or accel is moved there. ``key`` is a uint32[2] key
@@ -1078,9 +1195,10 @@ def render(scene: Scene, camera: Camera, settings: RenderSettings, key,
     bounce key, as in the reference. ``uniforms`` ((B, spp*H*W, C) in
     camera-ray order, ``rng.draw_bounce_uniforms``) replaces the bounce
     key's draw. Differentiable with respect to the scene's float
-    leaves (``Scene.with_params``); the film clamp is ``clip01``."""
-    if scene.texture is not None:
-        raise NotImplementedError("textured scenes are not ported yet")
+    leaves (``Scene.with_params``) and its texture
+    (``dataclasses.replace(scene, texture=t)``); the film clamp is
+    ``clip01``. ``progress_cb(rays_cast_of_the_chunk)`` is called once per
+    chunk where ``settings.ray_chunk`` cuts the frame in several."""
     dev = resolve_device(device)
     scene = scene.to(dev)
     accel = _accel_on(accel, dev)
@@ -1097,7 +1215,7 @@ def render(scene: Scene, camera: Camera, settings: RenderSettings, key,
         uniforms = torch.stack([to_tile_order(u, w, h, spp) for u in uniforms])
     ray_ids = torch.arange(orig.shape[0], dtype=torch.int32, device=dev)
     color, rays_cast = _trace_chunked(scene, orig, dirn, ray_ids, settings, bounce_key,
-                                      accel, uniforms)
+                                      accel, uniforms, progress_cb)
     color = from_tile_order(color, w, h, spp)
     film = color.reshape(spp, h, w, 3).mean(dim=0)
     film = clip01(film)

@@ -121,8 +121,12 @@ class Planes(_Leaves):
 
 @dataclasses.dataclass(frozen=True)
 class Scene(_Leaves):
-    """The render-facing scene. ``texture`` is carried for parity with the
-    reference but textured rendering is not ported yet."""
+    """The render-facing scene. ``texture`` (H, W, 3) float32, or None, is
+    the albedo map of the mesh's faces that have tex coords (nearest texel,
+    wrap addressing, v = 0 the bottom row); it moves with ``.to()`` and may
+    be a tensor that requires grad. It is not a ``SceneParams`` leaf, as in
+    the reference: take a texel gradient through
+    ``dataclasses.replace(scene, texture=t)``."""
 
     mesh: TriMesh
     spheres: Spheres

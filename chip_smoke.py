@@ -196,6 +196,35 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     bits equal the numpy threefry's, the film finite and unlike the film
     without AA; (e) on config 2's rays, ``trace_radiance`` with explicit
     uniforms drawn from a key bit-equal to the keyed trace.
+16. textures, AOVs and the output modules on the textured slice: phase
+    4's scene plus ``assets/Deer.obj`` (through the port's ``load_obj``,
+    turned, scaled and placed so at least 10% of the camera rays hit its
+    tex-coord faces) and the CLI's 1024 x 1024 checker, the shaded accel at
+    leaf 16, phase 4's settings. (a) the frame through the gather path
+    (``nearest_hit_ids`` -> ``wide_shade``, the texel gather): the textured
+    share, the camera bounce's texel gather timed alone, a warm-up and two
+    timed frames, ``wide_shade`` launched once a bounce in every chunk, all
+    inside ``nearest_hit_ids``, ``lane_take`` launched, no plain version; a
+    profiled frame, and the texel gather's device time from the profiler's
+    ``aten::index_select`` calls on the texel rows; the frame's camera-bounce
+    and sorted, packed bounce-2 launches of one chunk (captured) against
+    the plain version under phase 3's rules and bit for bit in t, id and
+    material; sort + pack == unsorted at 256x144 x 2 spp; a 48x27 render
+    against the CPU under phase 4's rule; (b) the texel gradient at phase
+    8's config (forward, forward+backward, ratio, peak memory; finite and
+    non-zero; the backward launches no ``wide_shade``; ``lane_scatter``
+    launched) and a 48x27 texel gradient on the card against the CPU plain
+    versions under phase 8's rule; (c) ``render_aovs`` at 1920x1080 through the shaded accel,
+    timed, its hit and material_id equal to the kernel's planes with the
+    floor merged, depth within 1e-4 relative of its t; (d)
+    ``render_progressive`` on 15d's cornell scene, 3 batches of 8 spp,
+    stopped after batch 1 and resumed from a checkpoint in a temporary
+    directory: film_sum equal to the run without a stop; (e)
+    ``render_telemetry`` of the frame as 16 chunks (``render`` at that
+    chunk size, timed from its callback), its film equal to ``render``'s,
+    whose ``progress_cb`` ticks once a chunk
+    with the chunk's live rays, summing to rays_cast; ``tail_report``; (f)
+    ``save_bmp`` of (a)'s film, its header read back.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every profile (phases 4, 8, 9, 11, 12) prints device time by kernel
@@ -450,13 +479,14 @@ def _walk_stats(st, alive):
             int(nv.max()), float(eff.mean()), int(keep.sum()))
 
 
-def _compare_hits(accel, planes, alive, label, gpu):
+def _compare_hits(accel, planes, alive, label, gpu, exact=False):
     """Kernel vs plain version on one ray set, stats off and on; returns
     (max error, kernel ms, plain ms, kernel output, bound). With stats on
     the kernel's hit planes must equal its planes with stats off, and on
     every ray whose t, id and material equal the plain version's bit for
     bit (at least 99% of the live rays), so must its per-ray node and leaf
-    visits: a ray's walk depends on no other ray."""
+    visits: a ray's walk depends on no other ray. With ``exact`` every
+    ray's t, id and material must equal the plain version's bit for bit."""
     import torch
 
     from atray_tpu_torch.kernels.wide_shade import (
@@ -472,6 +502,9 @@ def _compare_hits(accel, planes, alive, label, gpu):
     same = ((got["t"].view(torch.int32) == want["t"].view(torch.int32))
             & (got["id"] == want["id"]) & (got["mat"] == want["mat"]))
     n_same = int((same & alive).sum())
+    if exact and not bool(same.all()):
+        raise AssertionError(f"wide_shade {label}: t, id or material differ from the plain "
+                             f"version bit for bit on {int((~same).sum())} rays")
     if n_same < 0.99 * int(alive.sum()):
         raise AssertionError(f"wide_shade {label}: only {n_same} live rays bit-equal, "
                              "too few to hold the visit counts to")
@@ -582,14 +615,14 @@ def _slice_settings():
     return settings, cam
 
 
-def _frame_launches(scene, accel):
-    """The arguments ``render()`` hands ``wide_shade`` at ``FRAME_BOUNCES``
-    of chunk ``FRAME_CHUNK`` of one slice frame (phase 4's settings, key 0),
-    cloned: {bounce: [ox, oy, oz, dx, dy, dz, alive]}. Bounce 1 traces the
-    camera bounce's survivors at full width, in tile order; after it the
-    state is sorted and its live rays packed to a prefix
-    (``wavefront.trace_radiance``), so bounce 2 is the first sorted, packed
-    launch."""
+def _frame_launches(scene, accel, bounces=FRAME_BOUNCES):
+    """The arguments ``render()`` hands ``wide_shade`` at ``bounces`` of
+    chunk ``FRAME_CHUNK`` of one slice frame (phase 4's settings, key 0),
+    cloned: {bounce: [ox, oy, oz, dx, dy, dz, alive]}. Bounce 0 is the
+    camera bounce; bounce 1 traces its survivors at full width, in tile
+    order; after it the state is sorted and its live rays packed to a
+    prefix (``wavefront.trace_radiance``), so bounce 2 is the first sorted,
+    packed launch."""
     import torch
 
     from atray_tpu_torch.render import wavefront
@@ -602,7 +635,7 @@ def _frame_launches(scene, accel):
     def spy(acc, *args, **kw):
         chunk, b = divmod(len(calls), settings.bounce_limit)
         calls.append(b)
-        if chunk == FRAME_CHUNK and b in FRAME_BOUNCES:
+        if chunk == FRAME_CHUNK and b in bounces:
             got[b] = [a.clone() for a in args]
         return real(acc, *args, **kw)
 
@@ -614,7 +647,7 @@ def _frame_launches(scene, accel):
         wavefront.wide_shade_planes = real
     (w, h), spp = settings.resolution, settings.samples_per_pixel
     chunks = -(-(w * h * spp) // settings.ray_chunk)
-    if len(calls) != chunks * settings.bounce_limit or sorted(got) != list(FRAME_BOUNCES):
+    if len(calls) != chunks * settings.bounce_limit or sorted(got) != sorted(bounces):
         raise AssertionError(f"the frame launched wide_shade {len(calls)} times")
     return got
 
@@ -782,7 +815,24 @@ def _profile_frame(run, frame_s, gpu, label="phase 4", what="one slice frame"):
         print(f"{label} profile top torch kernel: {us / 1e3:.3f} ms, {count} launches, {key[:90]}")
 
 
-def phase_small_vs_cpu(scene, accel_host, dev, gpu):
+def _hold_grads(label, names, card, cpu):
+    """Holds each card gradient to the CPU plain versions' within 1e-4 of
+    the latter's max |g|, apart from at most 0.2% of values (grazing hits
+    decided by one rounding); returns the summary printed beside it."""
+    import numpy as np
+
+    worst = []
+    for k, a, b in zip(names, card, cpu):
+        scale = max(float(np.abs(b).max()), 1e-30)
+        bad = np.abs(a - b) > 1e-4 * scale
+        if bad.mean() > 0.002:
+            raise AssertionError(f"{label}: {k} differs beyond 1e-4 of max |g| on "
+                                 f"{int(bad.sum())} of {bad.size} values")
+        worst.append(f"{k} {float(np.abs(a - b).max()) / scale:.3g} ({int(bad.sum())} beyond)")
+    return ", ".join(worst)
+
+
+def phase_small_vs_cpu(scene, accel_host, dev, gpu, label="phase 4 small render"):
     import numpy as np
     import torch
 
@@ -799,9 +849,9 @@ def phase_small_vs_cpu(scene, accel_host, dev, gpu):
     if bad.mean() > 0.002:
         raise AssertionError(f"small render: {int(bad.sum())} of {bad.size} values differ "
                              "from the CPU render by more than 1e-4")
-    print(f"phase 4 small render 48x27 x 1 spp x 5 bounces: card vs CPU plain versions "
+    print(f"{label} 48x27 x 1 spp x 5 bounces: card vs CPU plain versions "
           f"{int(bad.sum())} of {bad.size} values beyond 1e-4, max |diff| "
-          f"{float(np.abs(gpu_film - cpu_film).max()):.3g}")
+          f"{float(np.abs(gpu_film - cpu_film).max()):.3g} [{gpu}]")
 
 
 def phase_identity(scene, accel, gpu):
@@ -1170,16 +1220,9 @@ def phase_gradient(scene, accel, scene_host, accel_host, dev, gpu):
         q = _grad_leaves(sc)
         loss = render(sc.with_params(q), cam, small, prng_key(5), accel=ac, device=where).sum()
         out[where] = [x.cpu().numpy() for x in torch.autograd.grad(loss, q.leaves())]
-    worst = []
-    for k, a, b in zip(names, out["cuda"], out["cpu"]):
-        scale = max(float(np.abs(b).max()), 1e-30)
-        bad = np.abs(a - b) > 1e-4 * scale
-        if bad.mean() > 0.002:
-            raise AssertionError(f"48x27 gradient: {k} differs beyond 1e-4 of max |g| on "
-                                 f"{int(bad.sum())} of {bad.size} values")
-        worst.append(f"{k} {float(np.abs(a - b).max()) / scale:.3g} ({int(bad.sum())} beyond)")
+    worst = _hold_grads("48x27 gradient", names, out["cuda"], out["cpu"])
     print("phase 8 gradient 48x27 x 1 spp x 3 bounces, card vs CPU plain versions, max |diff| "
-          "/ max |g|: " + ", ".join(worst))
+          "/ max |g|: " + worst)
     return counts, (t_f, t_b, peak)
 
 
@@ -2525,14 +2568,15 @@ def _shadow_launch(scene, accel, settings, cam, chunk, bounce):
 
 
 @contextlib.contextmanager
-def _shadow_spy(into):
+def _launch_spy(name, into):
     """While the block runs, append to ``into`` the ``wide_shade`` launches
-    each call of ``wavefront.occlusion`` (the NEE shadow rays) made, read
-    from the wrapper's own count."""
+    each call of ``wavefront.<name>`` made, read from the wrapper's own
+    count: ``occlusion`` for the NEE shadow rays, ``nearest_hit_ids`` for
+    the gather path's hits."""
     from atray_tpu_torch.kernels import _build
     from atray_tpu_torch.render import wavefront
 
-    real = wavefront.occlusion
+    real = getattr(wavefront, name)
     counter = _build.COUNTERS["wide_shade"]
 
     def spy(*args, **kw):
@@ -2541,11 +2585,11 @@ def _shadow_spy(into):
         into.append(counter.launches - before)
         return out
 
-    wavefront.occlusion = spy
+    setattr(wavefront, name, spy)
     try:
         yield
     finally:
-        wavefront.occlusion = real
+        setattr(wavefront, name, real)
 
 
 def phase_arealight(dev, gpu):
@@ -2570,7 +2614,7 @@ def phase_arealight(dev, gpu):
     shadow = []          # launches of each shadow-ray call in the timed frames
 
     def run(k):
-        with _shadow_spy(shadow if k else []):
+        with _launch_spy("occlusion", shadow if k else []):
             return render(scene, cam, s, prng_key(k), accel=accel, return_stats=True)
 
     warm, frames, counts, film = _timed_frames(run, (1, 2))
@@ -2675,16 +2719,9 @@ def phase_arealight(dev, gpu):
         q = _grad_leaves(sc)
         loss = render(sc.with_params(q), cam, small, prng_key(5), accel=ac, device=where).sum()
         out[where] = [x.cpu().numpy() for x in torch.autograd.grad(loss, q.leaves())]
-    worst = []
-    for k, a, b in zip(names, out["cuda"], out["cpu"]):
-        scale = max(float(np.abs(b).max()), 1e-30)
-        bad = np.abs(a - b) > 1e-4 * scale
-        if bad.mean() > 0.002:
-            raise AssertionError(f"15c 48x27 gradient: {k} differs beyond 1e-4 of max |g| on "
-                                 f"{int(bad.sum())} of {bad.size} values")
-        worst.append(f"{k} {float(np.abs(a - b).max()) / scale:.3g} ({int(bad.sum())} beyond)")
+    worst = _hold_grads("15c 48x27 gradient", names, out["cuda"], out["cpu"])
     print("phase 15c NEE gradient 48x27 x 1 spp x 3 bounces, card vs CPU plain versions, max "
-          "|diff| / max |g|: " + ", ".join(worst))
+          "|diff| / max |g|: " + worst)
     return {"launches": shadow_launches, "err": err, "ms": ms, "plain_ms": plain_ms,
             "bound": bound, "rays": rays, "live_rays": live}
 
@@ -2740,6 +2777,435 @@ def phase_oracle_slice(dev, gpu):
     phase_cornell(dev, gpu)
     print(f"phase 15 oracle slice: {time.perf_counter() - t0:.1f} s")
     return shadow
+
+
+TEXTURE_SIZE = 1024           # the checker's texels a side (the CLI's ``checker = [H, W]``)
+
+
+def _textured_slice_scene():
+    """Phase 16's host scene: ``_slice_scene()`` plus ``assets/Deer.obj``
+    (1,149 tex coords over 1,570 faces) turned a quarter about y, scaled to
+    4.0 tall and standing on the floor left of the dragon, and the CLI's
+    checker texture at 1024 x 1024 with colours (1, 1, 1) and (0.2, 0.2,
+    0.2)."""
+    import numpy as np
+
+    from atray_tpu_torch.scene import build_scene, load_obj
+    from atray_tpu_torch.scene.transforms import scale_to, translate_to
+
+    base = _slice_scene()
+    deer = load_obj(os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                                 "Deer.obj"))
+    v = np.asarray(deer.vertices)
+    deer = dataclasses.replace(deer, vertices=np.stack([v[:, 2], v[:, 1], -v[:, 0]], 1))
+    deer = translate_to(scale_to(deer, 4.0), (-2.5, 0.2, -2.0))
+    yy, xx = np.mgrid[0:TEXTURE_SIZE, 0:TEXTURE_SIZE]
+    m = ((xx + yy) % 2).astype(np.float32)[..., None]
+    tex = m * np.ones(3, np.float32) + (1.0 - m) * np.full(3, 0.2, np.float32)
+    return build_scene([base.mesh, deer], planes=base.planes, materials=base.materials,
+                       texture=tex)
+
+
+def _op_device_ms(run, op, shape0):
+    """(device ms, calls) of the ``op`` calls whose first input has shape
+    ``shape0`` in one call of ``run``, from torch.profiler (CPU ops with
+    their input shapes, and the kernels each launched), or None where the
+    profiler recorded no such call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    ms, calls = 0.0, 0
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key == op and e.input_shapes and list(e.input_shapes[0]) == list(shape0):
+            ms += float(getattr(e, "device_time_total", 0.0)) / 1e3
+            calls += e.count
+    return (ms, calls) if calls else None
+
+
+def _texel_rows(scene, accel, o, d):
+    """The texel rows the camera bounce of (o, d) reads, and the share of
+    its rays that hit a face with tex coords: ``_texture_mod_soa`` on a
+    texture whose first channel is the texel's flat index."""
+    import torch
+
+    from atray_tpu_torch.render import wavefront
+
+    ids = wavefront.nearest_hit_ids(scene, o, d, accel)
+    ft, fuv = wavefront.build_face_table(scene), wavefront.build_face_uv(scene)
+    tri = ids.prim_type == wavefront.PRIM_TRI
+    uv_hit = tri & (torch.index_select(fuv[:, 6], 0, ids.prim_id.clamp_min(0).long()) > 0.5)
+    tex = scene.texture
+    index_tex = torch.arange(tex.shape[0] * tex.shape[1], dtype=torch.float32,
+                             device=tex.device)[:, None].expand(-1, 3).reshape(tex.shape)
+    flat = wavefront._texture_mod_soa(index_tex, ft, fuv, ids.prim_id, tri,
+                                      *(o[:, k] for k in range(3)), *(d[:, k] for k in range(3)))
+    rows = torch.where(uv_hit, flat[0], 0.0).long()
+    return rows, float(uv_hit.double().mean())
+
+
+def phase_textured_frame(scene_host, scene, accel_host, accel, dev, gpu):
+    """16a: the textured slice frame (the gather path over the shaded
+    accel): textured share, timed frames, profile, the camera bounce's
+    launch against the plain version bit for bit, sort + pack identity, a
+    small render against the CPU. Returns (film, the kernels-line numbers
+    of the gather path's ``wide_shade``)."""
+    import numpy as np
+    import torch
+
+    from atray_tpu_torch.core.camera import camera_rays
+    from atray_tpu_torch.render import wavefront
+    from atray_tpu_torch.render.rng import prng_key
+
+    settings, cam = _slice_settings()
+    (w, h), spp, bounces = settings.resolution, settings.samples_per_pixel, settings.bounce_limit
+    chunks = -(-(w * h * spp) // settings.ray_chunk)
+    o, d = camera_rays(cam, w, h, 1, device=dev)
+    rows, share = _texel_rows(scene, accel, o, d)
+    if share < 0.10:
+        raise AssertionError(f"16a: only {share:.4f} of the camera rays hit a textured face")
+    tex_rows = scene.texture.reshape(-1, 3)
+    gather_ms = _cuda_ms(lambda: torch.index_select(tex_rows, 0, rows), 20)
+    del o, d
+
+    hits = []           # wide_shade launches of each nearest_hit_ids call in the timed frames
+
+    def run(k):
+        with _launch_spy("nearest_hit_ids", hits if k else []):
+            return wavefront.render(scene, cam, settings, prng_key(k), accel=accel,
+                                    return_stats=True)
+
+    warm, frames, counts, film = _timed_frames(run, (1, 2))
+    per_frame = bounces * chunks
+    if counts["wide_shade"][0] != per_frame * len(frames) or hits != [1] * per_frame * len(frames):
+        raise AssertionError(f"16a: wide_shade launched {counts['wide_shade'][0]} times, "
+                             f"{sum(hits)} of them in nearest_hit_ids, not once a bounce in "
+                             "every chunk")
+    if counts["lane_take"][0] <= 0:
+        raise AssertionError("16a: lane_take never launched")
+    _no_plain(counts, "16a")
+    f = film.cpu().numpy()
+    if f.shape != (h, w, 3) or not np.isfinite(f).all() or f.min() < 0 or f.max() > 1 \
+            or not f.std() > 0.01:
+        raise AssertionError(f"16a: film not finite (H, W, 3) in [0, 1] with std > 0.01")
+    _frames_line("16a", f"the textured slice, dragon_proxy(139_000) + Deer.obj "
+                 f"({scene.mesh.num_faces} tris), {TEXTURE_SIZE}x{TEXTURE_SIZE} checker, floor, "
+                 f"{w}x{h} x {spp} spp x {bounces} bounces, {chunks} chunks", warm, frames, gpu)
+    print(f"phase 16a: {share:.4f} of the camera rays hit a face with tex coords; launches over "
+          f"the 2 timed frames wide_shade {counts['wide_shade'][0]} (all {sum(hits)} in "
+          f"nearest_hit_ids: the gather path's hits), lane_take {counts['lane_take'][0]}, plain "
+          f"calls 0; film std {f.std():.4f}; the camera bounce's texel gather alone "
+          f"({rows.shape[0]} rows of {tex_rows.shape[0]}) {gather_ms:.4f} ms [{gpu}]")
+    frame_s = sum(sec for sec, _ in frames) / len(frames)
+
+    def one():
+        return wavefront.render(scene, cam, settings, prng_key(3), accel=accel)
+
+    _profile_frame(one, frame_s, gpu, "phase 16a", "one textured slice frame")
+    gather = _op_device_ms(one, "aten::index_select", list(tex_rows.shape))
+    print("phase 16a profile texel gather (aten::index_select on the "
+          f"{tex_rows.shape[0]} x 3 texel rows): "
+          + ("not measured (the profiler recorded no such call)" if gather is None else
+             f"{gather[0]:.3f} ms of device time over {gather[1]} calls")
+          + f" in one frame [{gpu}]")
+
+    # the frame's own launches: the camera bounce and the sorted, packed
+    # bounce 2 of one chunk, against the plain version bit for bit
+    got = _frame_launches(scene, accel, (0, 2))
+    entry = None
+    for b in (0, 2):
+        args = got[b]
+        err, ms, plain_ms, _, bound = _compare_hits(accel, args[:6], args[6],
+                                                    f"(phase 16a) gather-path bounce {b}", gpu,
+                                                    exact=True)
+        live = int(args[6].sum())
+        print(f"phase 16a gather-path wide_shade (bounce {b}, chunk {FRAME_CHUNK}): {live} live "
+              f"of {args[6].shape[0]} rays, t, id and material == the plain version's bit for "
+              f"bit; kernel {ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
+              f"({ms / bound[0]:.2f}x), plain {plain_ms:.1f} ms [{gpu}]")
+        if b == 0:
+            entry = {"launches": counts["wide_shade"][0], "err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound": bound, "rays": args[6].shape[0],
+                     "live_rays": live}
+    del got
+
+    def identity(on):
+        s = dataclasses.replace(settings, resolution=(256, 144), samples_per_pixel=2,
+                                ray_chunk=0, sort_bounces=on, lane_pack=on)
+        return wavefront.render(scene, cam, s, prng_key(4), accel=accel)
+
+    if not torch.equal(identity(True), identity(False)):
+        raise AssertionError("16a: the sorted + packed textured film != the unsorted film")
+    print(f"phase 16a identity 256x144 x 2 spp x 5 bounces: sort+pack textured film == plain "
+          f"film (torch.equal) [{gpu}]")
+    phase_small_vs_cpu(scene_host, accel_host, dev, gpu, "phase 16a small textured render")
+    return film, entry
+
+
+def phase_texture_gradient(scene_host, scene, accel_host, accel, gpu):
+    """16b: the texel gradient at ``bench.py``'s backward config, and at
+    48x27 against the CPU plain versions."""
+    import numpy as np
+    import torch
+
+    from atray_tpu_torch.config import RenderSettings
+    from atray_tpu_torch.render.rng import prng_key
+    from atray_tpu_torch.render.wavefront import render
+
+    gs = RenderSettings(resolution=(960, 540), samples_per_pixel=4, bounce_limit=3, ray_chunk=0)
+    _, cam = _slice_settings()
+    tex = scene.texture.detach().clone().requires_grad_()
+    textured = dataclasses.replace(scene, texture=tex)
+
+    def loss_of(k):
+        return render(textured, cam, gs, prng_key(k), accel=accel).sum()
+
+    def fwd(k):
+        with torch.no_grad():
+            return float(loss_of(k))
+
+    def fwd_bwd(k):
+        return torch.autograd.grad(loss_of(k), [tex])[0]
+
+    fwd(100)
+    fwd_bwd(100)
+    torch.cuda.synchronize()
+    f_runs = [_host_ms(lambda k=k: fwd(k)) / 1e3 for k in (1, 2, 3)]
+    b_runs = [_host_ms(lambda k=k: fwd_bwd(k)) / 1e3 for k in (1, 2, 3)]
+    t_f, t_b = min(f_runs), min(b_runs)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    loss = loss_of(3)
+    torch.cuda.synchronize()
+    fwd_counts = _read_counts()
+    g = torch.autograd.grad(loss, [tex])[0]
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if fwd_counts["wide_shade"][0] != gs.bounce_limit:
+        raise AssertionError(f"16b: forward wide_shade {fwd_counts['wide_shade'][0]}")
+    if counts["wide_shade"][0] != fwd_counts["wide_shade"][0]:
+        raise AssertionError(f"16b: the backward launched wide_shade "
+                             f"({fwd_counts['wide_shade'][0]} -> {counts['wide_shade'][0]})")
+    if counts["lane_scatter"][0] <= 0:
+        raise AssertionError("16b: lane_scatter never launched")
+    _no_plain(counts, "16b")
+    gn = g.cpu().numpy()
+    if not np.isfinite(gn).all() or not np.abs(gn).max() > 0:
+        raise AssertionError("16b: the texel gradient is not finite or is zero")
+    print(f"phase 16b texel gradient 960x540 x 4 spp x 3 bounces (2,073,600 rays, one chunk, "
+          f"sort + lane pack, gather path): forward {t_f:.4f} s, forward+backward {t_b:.4f} s, "
+          f"ratio {t_b / t_f:.3f} (best of 3: forward {', '.join(f'{x:.4f}' for x in f_runs)}; "
+          f"forward+backward {', '.join(f'{x:.4f}' for x in b_runs)}), max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB [{gpu}]")
+    print(f"phase 16b launches: forward wide_shade {fwd_counts['wide_shade'][0]}, after backward "
+          f"{counts['wide_shade'][0]}, lane_scatter {counts['lane_scatter'][0]}, plain calls 0; "
+          f"texels with a gradient {int((gn != 0).any(-1).sum())} of {gn.shape[0] * gn.shape[1]}, "
+          f"max |g| {float(np.abs(gn).max()):.4g} [{gpu}]")
+
+    # a small texel gradient on the card against the CPU plain versions
+    small = RenderSettings(resolution=(48, 27), samples_per_pixel=1, bounce_limit=3)
+    out = {}
+    for where, sc, ac in (("cuda", scene, accel), ("cpu", scene_host.to("cpu"), accel_host)):
+        t = sc.texture.detach().clone().requires_grad_()
+        loss = render(dataclasses.replace(sc, texture=t), cam, small, prng_key(5), accel=ac,
+                      device=where).sum()
+        out[where] = torch.autograd.grad(loss, [t])[0].cpu().numpy()
+    if not np.abs(out["cpu"]).max() > 0:
+        raise AssertionError("16b 48x27 texel gradient: zero on the CPU")
+    worst = _hold_grads("16b 48x27 texel gradient", ("texture",), [out["cuda"]], [out["cpu"]])
+    print("phase 16b texel gradient 48x27 x 1 spp x 3 bounces, card vs CPU plain versions, max "
+          f"|diff| / max |g|: {worst}; texels with a gradient "
+          f"{int((out['cpu'] != 0).any(-1).sum())} [{gpu}]")
+
+
+def phase_aovs(scene, accel, dev, gpu):
+    """16c: the AOVs of the textured slice at 1920x1080 through the shaded
+    accel, held to the kernel's planes and the floor."""
+    import torch
+
+    from atray_tpu_torch.core.camera import camera_rays
+    from atray_tpu_torch.core.intersect import INF, moller_trumbore, plane_hits
+    from atray_tpu_torch.kernels.wide_shade import wide_shade_planes
+    from atray_tpu_torch.render.aov import render_aovs
+    from atray_tpu_torch.render.wavefront import build_face_table
+
+    settings, cam = _slice_settings()
+    w, h = settings.resolution
+    render_aovs(scene, cam, w, h, accel=accel)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    aovs = render_aovs(scene, cam, w, h, accel=accel)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = _read_counts()
+    if counts["wide_shade"][0] != 1:
+        raise AssertionError(f"16c: wide_shade launched {counts['wide_shade'][0]} times, not once")
+    _no_plain(counts, "16c")
+    o, d = camera_rays(cam, w, h, 1, device=dev)
+    ones = torch.ones(o.shape[0], dtype=torch.bool, device=dev)
+    fo = wide_shade_planes(accel, *_planes_of(o, d), ones)
+    tp, pid = plane_hits(o, d, scene.planes.normals, scene.planes.offsets)
+    tri = fo["id"] >= 0
+    t_tri = torch.where(tri, fo["t"], INF)
+    floor = (pid >= 0) & (tp < t_tri)
+    # resolve_hit demotes a triangle hit whose Moller-Trumbore recompute
+    # misses (a grazing hit decided the other way by the recompute)
+    row = torch.index_select(build_face_table(scene), 0, fo["id"].clamp_min(0).long())
+    kept = moller_trumbore(o, d, row[:, 0:3], row[:, 3:6], row[:, 6:9])[0] < 1.0e30
+    tri_won = tri & ~floor
+    demoted = int((tri_won & ~kept).sum())
+    hit = floor | (tri_won & kept)
+    mat = torch.where(floor, scene.planes.material_id[pid.clamp_min(0).long()],
+                      torch.where(tri_won & kept, fo["mat"], -1))
+    depth = torch.where(floor, tp, torch.where(tri, fo["t"], 0.0))
+    got_hit = aovs["hit"].reshape(-1) > 0.5
+    got_mat = aovs["material_id"].reshape(-1)
+    if not torch.equal(got_hit, hit) or not torch.equal(got_mat, mat):
+        bad = torch.nonzero((got_hit != hit) | (got_mat != mat)).reshape(-1)[:4].tolist()
+        raise AssertionError(
+            f"16c: hit or material_id differ from the kernel's planes on "
+            f"{int((got_hit != hit).sum())}, {int((got_mat != mat).sum())} pixels; (pixel, id, "
+            f"t, floor t, kept, AOV hit, AOV material): "
+            + "; ".join(f"({i}, {int(fo['id'][i])}, {float(fo['t'][i])}, {float(tp[i])}, "
+                        f"{bool(kept[i])}, {bool(got_hit[i])}, {int(got_mat[i])})" for i in bad))
+    rel = ((aovs["depth"].reshape(-1) - depth).abs() / depth.abs().clamp_min(1e-30))[hit]
+    if float(rel.max()) > 1e-4:
+        raise AssertionError(f"16c: depth off the kernel's t by {float(rel.max()):.3g} relative")
+    al = aovs["albedo"].reshape(-1, 3)[hit]
+    print(f"phase 16c AOVs 1920x1080 through the shaded accel: {sec:.4f} s (one wide_shade "
+          f"launch, plain calls 0); hit and material_id == the kernel's id and material planes "
+          f"with the floor merged and {demoted} grazing hits demoted by the recompute, depth "
+          f"within {float(rel.max()):.3g} of its t (1e-4 relative); {int(hit.sum())} hits, "
+          f"{len(torch.unique(al, dim=0))} distinct albedo rows [{gpu}]")
+
+
+class _Stop(Exception):
+    """Stops a progressive render after a batch."""
+
+
+def phase_progressive(dev, gpu):
+    """16d: progressive render with a stop and a resume, on 15d's cornell
+    scene."""
+    import tempfile
+
+    import numpy as np
+
+    from atray_tpu_torch.render import progressive
+
+    scene_host, s, cam, accel_host = _toml_scene("cornell")
+    scene, accel = scene_host.to(dev), accel_host.to(dev)
+    total = 3 * s.samples_per_pixel
+    t0 = time.perf_counter()
+    full = progressive.render_progressive(scene, cam, s, total, accel=accel, seed=11)
+    full_s = time.perf_counter() - t0
+
+    def stop_after_one(state):
+        if state.batches_done == 1:
+            raise _Stop
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cornell.npz")
+        try:
+            progressive.render_progressive(scene, cam, s, total, accel=accel, seed=11,
+                                           checkpoint_path=path, on_batch=stop_after_one)
+        except _Stop:
+            pass
+        stopped = progressive.load_checkpoint(path).batches_done
+        t0 = time.perf_counter()
+        resumed = progressive.render_progressive(scene, cam, s, total, accel=accel, seed=11,
+                                                 checkpoint_path=path)
+        resume_s = time.perf_counter() - t0
+    if stopped != 1 or resumed.batches_done != 3:
+        raise AssertionError(f"16d: stopped at batch {stopped}, resumed to {resumed.batches_done}")
+    if not np.array_equal(resumed.film_sum, full.film_sum):
+        raise AssertionError("16d: the resumed film_sum differs from the run without a stop")
+    w, h = s.resolution
+    print(f"phase 16d progressive: examples/cornell.toml {w}x{h}, AA, {s.bounce_limit} bounces, "
+          f"3 batches of {s.samples_per_pixel} spp: without a stop {full_s:.4f} s; stopped after "
+          f"batch 1, resumed from the checkpoint (2 batches) {resume_s:.4f} s; film_sum == the "
+          f"run without a stop (np.array_equal), film std {full.film().std():.4f} [{gpu}]")
+
+
+def phase_telemetry(scene, accel, gpu):
+    """16e: the textured slice frame as 16 timed chunks, against
+    ``render()`` at that chunk size with a progress callback."""
+    import torch
+
+    from atray_tpu_torch.render.rng import prng_key
+    from atray_tpu_torch.render.telemetry import render_telemetry, tail_report
+    from atray_tpu_torch.render.wavefront import render
+
+    settings, cam = _slice_settings()
+    film_t, report = render_telemetry(scene, cam, settings, prng_key(7), accel=accel,
+                                      n_chunks=16)
+    chunked = dataclasses.replace(settings, ray_chunk=report["chunk_rays"])
+    ticks = []
+    film, stats = render(scene, cam, chunked, prng_key(7), accel=accel, return_stats=True,
+                         progress_cb=ticks.append)
+    rays = int(stats["rays_cast"])
+    if not torch.equal(film_t, film):
+        raise AssertionError("16e: the telemetry film != render() at its chunk size")
+    if len(ticks) != report["n_chunks"] or sum(ticks) != rays \
+            or ticks != report["chunk_live_rays"]:
+        raise AssertionError(f"16e: {len(ticks)} progress ticks summing to {sum(ticks)}, not one "
+                             f"a chunk summing to rays_cast {rays}")
+    print(f"phase 16e telemetry: the textured slice frame as {report['n_chunks']} chunks of "
+          f"{report['chunk_rays']} rays, {sum(report['chunk_s']):.4f} s in all; film == "
+          f"render(ray_chunk={report['chunk_rays']}) (torch.equal); progress_cb ticked "
+          f"{len(ticks)} times, summing to rays_cast {rays}, each tick its chunk's live rays "
+          f"[{gpu}]")
+    for line in tail_report(report).splitlines():
+        print(f"phase 16e {line}")
+
+
+def phase_bmp(film, gpu):
+    """16f: ``save_bmp`` of 16a's film, its header read back."""
+    import struct
+    import tempfile
+
+    from atray_tpu_torch.render.film import save_bmp
+
+    h, w = film.shape[0], film.shape[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_bmp(os.path.join(tmp, "slice.bmp"), film, srgb=True)
+        with open(path, "rb") as fh:
+            data = fh.read()
+    size, = struct.unpack("<I", data[2:6])
+    bw, bh, planes, bits = struct.unpack("<iiHH", data[18:30])
+    want = 54 + ((3 * w + 3) & ~3) * h
+    if data[:2] != b"BM" or (bw, bh, planes, bits) != (w, h, 1, 24) or not size == len(data) == want:
+        raise AssertionError(f"16f: BMP header {data[:2]!r} {size} {bw}x{bh} {bits} bits")
+    print(f"phase 16f save_bmp: 16a's film, {len(data)} bytes, header BM, {bw}x{bh}, {bits} bits, "
+          f"file size field == the file's [{gpu}]")
+
+
+def phase_output_slice(dev, gpu):
+    """Phase 16; returns the gather path's ``wide_shade`` numbers."""
+    from atray_tpu_torch.accel.shaded import build_shaded_accel
+    from atray_tpu_torch.config import KDTreeConfig
+
+    t_all = time.perf_counter()
+    scene_host = _textured_slice_scene()
+    t0 = time.perf_counter()
+    accel_host = build_shaded_accel(scene_host, KDTreeConfig(leaf_size=16))
+    print(f"phase 16 host build: textured slice scene and shaded accel in "
+          f"{time.perf_counter() - t_all:.2f} s (the accel {time.perf_counter() - t0:.2f} s; "
+          f"{scene_host.mesh.num_faces} tris, {accel_host.num_nodes} wide nodes, texels "
+          f"{scene_host.texture.nbytes / 1e6:.1f} MB) [{gpu}]")
+    scene, accel = scene_host.to(dev), accel_host.to(dev)
+    film, entry = phase_textured_frame(scene_host, scene, accel_host, accel, dev, gpu)
+    phase_texture_gradient(scene_host, scene, accel_host, accel, gpu)
+    phase_aovs(scene, accel, dev, gpu)
+    phase_progressive(dev, gpu)
+    phase_telemetry(scene, accel, gpu)
+    phase_bmp(film, gpu)
+    print(f"phase 16 textures, AOVs and output: {time.perf_counter() - t_all:.1f} s")
+    return entry
 
 
 def _entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms, **rays):
@@ -2816,6 +3282,7 @@ def main() -> int:
     lineage = phase_lineage(walks, gpu)
     probes = phase_probes(dev, gpu)
     shadow = phase_oracle_slice(dev, gpu)
+    gather = phase_output_slice(dev, gpu)
 
     lt_ms, lt_plain, lt_lib = lt[(14, 4_147_200, "pack")]
     n_chunk = 4_147_200
@@ -2829,6 +3296,10 @@ def main() -> int:
                "atray_tpu/kernels/wide_shade.py:43", shadow["launches"], shadow["err"],
                shadow["ms"], shadow["plain_ms"], shadow["bound"], None, rays=shadow["rays"],
                live_rays=shadow["live_rays"]),
+        _entry("wide_shade (gather path)", "atray_tpu_torch/csrc/wide_shade.cu",
+               "atray_tpu/kernels/wide_shade.py:43", gather["launches"], gather["err"],
+               gather["ms"], gather["plain_ms"], gather["bound"], None, rays=gather["rays"],
+               live_rays=gather["live_rays"]),
         _entry("lane_take", "atray_tpu_torch/csrc/lane_take.cu",
                "atray_tpu/kernels/lane_pack.py:202", counts["lane_take"][0], 0.0,
                lt_ms, lt_plain, _bound((2 * 14 + 1) * 4 * n_chunk), lt_lib),

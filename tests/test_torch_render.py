@@ -217,19 +217,23 @@ def test_face_table_camera_tiles_and_film_match_jax():
 
 
 def test_unported_options_raise():
-    # textures are the option still to port: a textured scene raises, from
-    # render() and from trace_radiance(), with and without an accel
-    scene = dataclasses.replace(scene_from_numpy(_tree(_pack_scene())),
-                                texture=np.ones((4, 4, 3), np.float32)).to("cpu")
+    # textures were the last render option to port, and no option raises
+    # now: a textured scene renders from render() and trace_radiance(),
+    # with and without an accel, and a texture of ones gives the
+    # untextured film (through the gather path, not the fused hit)
+    plain = scene_from_numpy(_tree(_pack_scene())).to("cpu")
+    scene = dataclasses.replace(plain, texture=torch.ones((4, 4, 3)))
     accel = build_shaded_accel(scene, KDTreeConfig(leaf_size=8)).to("cpu")
     cam = look_at_camera((0, 0.6, 0.7), (0, 0, -4), h_fov=0.9, aspect=2.0)
     s = RenderSettings(resolution=(16, 8), samples_per_pixel=1)
     for acc in (accel, None):
-        with pytest.raises(NotImplementedError, match="textured"):
-            tw.render(scene, cam, s, prng_key(0), accel=acc, device="cpu")
+        got = tw.render(scene, cam, s, prng_key(0), accel=acc, device="cpu")
+        want = tw.render(plain, cam, s, prng_key(0), accel=acc, device="cpu")
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
     o, d = camera_rays(cam, 16, 8, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="textured"):
-        tw.trace_radiance(scene, o, d, 2, prng_key(0), accel=accel)
+    got = tw.trace_radiance(scene, o, d, 2, prng_key(0), accel=accel)
+    want = tw.trace_radiance(plain, o, d, 2, prng_key(0), accel=accel)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
