@@ -7,7 +7,8 @@ degenerate triangles at 1e30 that never hit; ``tri_orig_id`` maps slots
 back to face indices (-1 = pad). Same mesh, same tree: the numpy build and
 the native build (``native/``) each reproduce the reference's tables for
 the same backend. ``BVH.to(device)`` uploads the arrays (the skip-link walk
-of ``accel/traverse.py`` reads them as tensors).
+of ``accel/traverse.py`` reads them as tensors). ``validate_bvh`` checks a
+tree's structural invariants.
 """
 
 from __future__ import annotations
@@ -211,3 +212,31 @@ def build_bvh(vertices, faces, config: KDTreeConfig = KDTreeConfig(),
         leaf_start=leaf_start, tri_p0=p0, tri_e1=e1, tri_e2=e2,
         tri_orig_id=oid, leaf_size=leaf_size, max_depth=int(config.max_depth),
     )
+
+
+def validate_bvh(bvh: BVH, num_faces: int) -> None:
+    """Structural invariants, host-side; raises ``AssertionError``."""
+    miss = np.asarray(bvh.node_miss)
+    ls = np.asarray(bvh.leaf_start)
+    k = miss.shape[0]
+    assert miss[0] == -1, "root's skip must terminate traversal"
+    pos = np.nonzero(miss >= 0)[0]
+    assert np.all(miss[pos] > pos), "miss links must jump strictly forward"
+    oid = np.asarray(bvh.tri_orig_id)
+    real = oid[oid >= 0]
+    assert real.size == num_faces, "face count mismatch"
+    assert np.array_equal(np.sort(real), np.arange(num_faces)), \
+        "every face must appear exactly once"
+    starts = ls[ls >= 0]
+    assert np.all(starts % bvh.leaf_size == 0)
+    assert starts.size == 0 or starts.max() + bvh.leaf_size <= oid.size
+    # interior nodes' boxes contain every box of their subtree (held against
+    # the subtree's least and greatest corner: rounding is monotonic, so
+    # this is the reference's test of each descendant in turn)
+    nmin = np.asarray(bvh.node_min)
+    nmax = np.asarray(bvh.node_max)
+    for posn in np.nonzero(ls < 0)[0]:
+        end = miss[posn] if miss[posn] >= 0 else k
+        if end > posn + 1:
+            assert np.all(nmin[posn] <= nmin[posn + 1:end].min(axis=0) + 1e-6)
+            assert np.all(nmax[posn] >= nmax[posn + 1:end].max(axis=0) - 1e-6)

@@ -67,3 +67,15 @@ class KDTreeConfig:
     sah_bins: int = 16
     max_depth: int = 40
     leaves_per_treelet: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh shape, parsed from a scene TOML's ``[mesh]`` table.
+    ``num_devices`` 0 means one device, -1 all visible devices. Only 0
+    renders in the port so far: the sharded render is
+    ``ROADMAP.md`` queue 1 item 3, and ``cli.cmd_render`` raises
+    ``NotImplementedError`` for any other count."""
+
+    num_devices: int = 0
+    axis_name: str = "rays"

@@ -104,9 +104,10 @@ def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
 
 
 def prng_key(seed: int) -> np.ndarray:
-    """``jax.random.PRNGKey(seed)``: the 64-bit seed as (hi, lo) words."""
-    s = int(seed) & 0xFFFFFFFFFFFFFFFF
-    return np.array([s >> 32, s & _M32], np.uint32)
+    """``jax.random.PRNGKey(seed)`` as the JAX package runs it (64-bit
+    types off): the seed's low 32 bits as the second word, the first 0,
+    also for negative seeds and seeds of 2**32 and more."""
+    return np.array([0, int(seed) & _M32], np.uint32)
 
 
 def split(key, num: int = 2) -> np.ndarray:

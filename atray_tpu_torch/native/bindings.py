@@ -1,8 +1,9 @@
-"""ctypes binding to the native SAH BVH builder.
+"""ctypes bindings to the native host components: the SAH BVH builder and
+the OBJ parser.
 
 The port keeps its own copy of the C++ source,
 ``atray_tpu_torch/native/atray_native.cpp`` (a copy of the JAX package's
-``atray_tpu/native/atray_native.cpp`` with the same builder), and compiles
+``atray_tpu/native/atray_native.cpp`` with the same builder and parser), and compiles
 it with the system C++ compiler into the port's git-ignored
 ``atray_tpu_torch/_build/``. The library name carries a hash of the source
 and flags, so an edited source builds a new library and a stale one is
@@ -41,6 +42,23 @@ class _BvhOut(ctypes.Structure):
     ]
 
 
+class _ObjOut(ctypes.Structure):
+    """``AtrayObjOut`` of ``atray_native.cpp``: malloc'd buffers and counts."""
+
+    _fields_ = [
+        ("verts", ctypes.POINTER(ctypes.c_float)),
+        ("norms", ctypes.POINTER(ctypes.c_float)),
+        ("texs", ctypes.POINTER(ctypes.c_float)),
+        ("faces", ctypes.POINTER(ctypes.c_int32)),
+        ("fnidx", ctypes.POINTER(ctypes.c_int32)),
+        ("ftidx", ctypes.POINTER(ctypes.c_int32)),
+        ("nverts", ctypes.c_int64),
+        ("nnorms", ctypes.c_int64),
+        ("ntexs", ctypes.c_int64),
+        ("nfaces", ctypes.c_int64),
+    ]
+
+
 class _Native:
     """The loaded library, or the reason it could not be built."""
 
@@ -73,6 +91,8 @@ def _build() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(_BvhOut),
     ]
+    lib.atray_parse_obj.restype = ctypes.c_int
+    lib.atray_parse_obj.argtypes = [ctypes.c_char_p, ctypes.POINTER(_ObjOut)]
     lib.atray_free.restype = None
     lib.atray_free.argtypes = [ctypes.c_void_p]
     return lib
@@ -122,5 +142,36 @@ def build_bvh_native(vertices, faces, leaf_size: int, sah_bins: int, max_depth: 
     )
     for ptr in (out.node_min, out.node_max, out.node_miss, out.leaf_start,
                 out.tri_p0, out.tri_e1, out.tri_e2, out.tri_id):
+        lib.atray_free(ctypes.cast(ptr, ctypes.c_void_p))
+    return result
+
+
+def parse_obj_native(path: str):
+    """Native OBJ parse -> dict of arrays (vertices, normals, tex_coords,
+    faces, face_normal_idx, face_tex_idx), or None when the library is
+    unavailable or the parse fails (a missing file, say)."""
+    if not available():
+        return None
+    lib = _native.lib
+    out = _ObjOut()
+    rc = lib.atray_parse_obj(os.fsencode(path), ctypes.byref(out))
+    if rc != 0:
+        return None
+
+    def rows(ptr, count, width, dtype):
+        # the parser allocates at least one row, so an empty table is a
+        # valid buffer cut to zero rows
+        return _take(ptr, width * max(count, 1), dtype).reshape(-1, width)[:count]
+
+    nf = out.nfaces
+    result = dict(
+        vertices=rows(out.verts, out.nverts, 3, np.float32),
+        normals=rows(out.norms, out.nnorms, 3, np.float32),
+        tex_coords=rows(out.texs, out.ntexs, 2, np.float32),
+        faces=rows(out.faces, nf, 3, np.int32),
+        face_normal_idx=rows(out.fnidx, nf, 3, np.int32),
+        face_tex_idx=rows(out.ftidx, nf, 3, np.int32),
+    )
+    for ptr in (out.verts, out.norms, out.texs, out.faces, out.fnidx, out.ftidx):
         lib.atray_free(ctypes.cast(ptr, ctypes.c_void_p))
     return result

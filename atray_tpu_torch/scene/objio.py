@@ -3,9 +3,10 @@
 
 ``v``/``vt``/``vn`` records; the four face-vertex forms (``v``, ``v/vt``,
 ``v//vn``, ``v/vt/vn``); negative (relative) indices; n-gons split into
-fans; ``usemtl`` groups mapped to material ids. Only the Python parser is
-ported: the JAX package's native parser (``parse_obj_native``) is not, so
-``backend="native"`` raises.
+fans; ``usemtl`` groups mapped to material ids. Two parsers give the same
+arrays: the native C++ one (``native.parse_obj_native``, the port's copy of
+the reference's ``atray_native.cpp``), which does not track ``usemtl``, and
+the Python one below.
 """
 
 from __future__ import annotations
@@ -22,18 +23,40 @@ def _fix_index(idx: int, count: int) -> int:
     return idx - 1 if idx > 0 else count + idx
 
 
+def _native_mesh(nat: dict, default_material: int) -> TriMesh:
+    t = nat["faces"].shape[0]
+    return TriMesh(
+        vertices=_f32(nat["vertices"]),
+        faces=_i32(nat["faces"]),
+        normals=_f32(nat["normals"] if nat["normals"].shape[0] else np.zeros((1, 3))),
+        face_normal_idx=_i32(nat["face_normal_idx"]),
+        tex_coords=_f32(nat["tex_coords"] if nat["tex_coords"].shape[0] else np.zeros((1, 2))),
+        face_tex_idx=_i32(nat["face_tex_idx"]),
+        material_id=_i32(np.full((t,), default_material, np.int32)),
+    )
+
+
 def load_obj(path: str, material_map: Optional[Dict[str, int]] = None,
              default_material: int = 1, backend: str = "auto") -> TriMesh:
     """Parse an OBJ file into a host ``TriMesh``. ``material_map`` maps
     ``usemtl`` names to material ids; unmapped names and faces before any
-    ``usemtl`` get ``default_material``. ``backend`` "auto" and "python"
-    run the Python parser."""
-    if backend == "native":
-        raise NotImplementedError(
-            "the native OBJ parser is not ported yet (ROADMAP.md queue 1 item 6); "
-            "use backend='auto' or 'python'")
-    if backend not in ("auto", "python"):
+    ``usemtl`` get ``default_material``.
+
+    ``backend``: "auto" takes the native parser where no ``material_map``
+    is given, and the Python parser where one is or where the native
+    library cannot build here; "native" takes the native parser where no
+    ``material_map`` is given and raises ``RuntimeError`` if it fails;
+    "python" takes the Python parser."""
+    if backend not in ("auto", "native", "python"):
         raise ValueError(f"unknown OBJ backend {backend!r}")
+    if backend != "python" and not material_map:
+        from atray_tpu_torch.native import parse_obj_native
+
+        nat = parse_obj_native(path)
+        if nat is not None and nat["vertices"].shape[0] > 0:
+            return _native_mesh(nat, default_material)
+        if backend == "native":
+            raise RuntimeError(f"native OBJ parse failed for {path!r}")
     verts: List[Tuple[float, float, float]] = []
     norms: List[Tuple[float, float, float]] = []
     texs: List[Tuple[float, float]] = []

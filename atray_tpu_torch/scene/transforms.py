@@ -1,4 +1,6 @@
-"""Host-side mesh transforms (``atray_tpu/scene/transforms.py``)."""
+"""Host-side mesh transforms and bounds (``atray_tpu/scene/transforms.py``):
+AABB, translate and scale (to a position or an extent), and smooth vertex
+normals."""
 
 from __future__ import annotations
 
@@ -8,6 +10,7 @@ from typing import Tuple
 import numpy as np
 
 from atray_tpu_torch.scene.data import TriMesh, _f32
+from atray_tpu_torch.scene.procedural import _vertex_normals_np
 
 
 def get_aabb(mesh: TriMesh) -> Tuple[np.ndarray, np.ndarray]:
@@ -40,3 +43,12 @@ def scale_to(mesh: TriMesh, max_extent: float) -> TriMesh:
     if cur <= 0.0:
         return mesh
     return scale(mesh, max_extent / cur)
+
+
+def compute_vertex_normals(mesh: TriMesh) -> TriMesh:
+    """Area-weighted smooth vertex normals (float64 sums in the reference's
+    order, so the normals are its bits); fills ``normals`` and sets
+    ``face_normal_idx`` to the faces."""
+    v = np.asarray(mesh.vertices)
+    return dataclasses.replace(mesh, normals=_vertex_normals_np(v, np.asarray(mesh.faces)),
+                               face_normal_idx=mesh.faces)

@@ -226,6 +226,28 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     with the chunk's live rays, summing to rays_cast; ``tail_report``; (f)
     ``save_bmp`` of (a)'s film, its header read back.
 
+17. the host surfaces: (a) the native OBJ parser (``native.parse_obj_native``)
+    on ``Cube.obj``, ``Deer.obj``, ``Monkey.obj`` and a
+    ``dragon_proxy(139_000)`` OBJ written to a temporary directory, its
+    arrays equal to the Python parser's, both parse times; (b) ``bench.py``'s
+    ladder config 3 (``Deer.obj`` on the floor, 1280x720, 16 spp, 3
+    bounces, sorted, leaf 16) written as a TOML and rendered by
+    ``cli.main(["render", toml, "-o", png])`` on the card: the TOML's scene
+    equal to ``_ladder_scene(3)``'s, ``wide_shade`` launched once a bounce,
+    ``lane_take`` launched, no plain version, the PNG's bytes equal to
+    ``save_png`` of a direct ``render()`` with ``prng_key(0)``; the
+    camera bounce's ``wide_shade`` launch and the first ``lane_take``
+    launch (the compaction's state pack) of that render, captured, against
+    their plain versions (phase 3's rules; bit for bit); the command line's
+    phase table and live rays/s; (c) ``examples/cornell.toml`` and
+    ``examples/arealight.toml`` through ``cli.main`` at their own sizes:
+    films finite, in [0, 1], not black; (d) ``--aov``, ``--telemetry 4``
+    and ``--progressive`` on config 3, the run resumed from its checkpoint
+    equal to the uninterrupted one; (e) ``validate_bvh``,
+    ``compute_vertex_normals`` and ``save_cost_heatmap`` with their host
+    seconds, and ``python3 -m atray_tpu_torch.examples.render_demo`` as a
+    subprocess from the root: exit 0, five PNGs.
+
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every profile (phases 4, 8, 9, 11, 12) prints device time by kernel
 and, where they ran, the lane kernels' device time and launches. Then a
@@ -479,23 +501,40 @@ def _walk_stats(st, alive):
             int(nv.max()), float(eff.mean()), int(keep.sum()))
 
 
-def _compare_hits(accel, planes, alive, label, gpu, exact=False):
+def _plain_hits(accel, planes, alive, piece=None, **kw):
+    """``wide_shade_planes_ref`` on the rays, in pieces of ``piece`` rays
+    where given (a ray's walk depends on no other ray; the plain version's
+    per-ray stacks and leaf records for a whole 14,745,600-ray launch would
+    take tens of GB). ``visits`` sums over the pieces."""
+    import torch
+
+    from atray_tpu_torch.kernels.wide_shade import wide_shade_planes_ref
+
+    n = alive.shape[0]
+    if piece is None or piece >= n:
+        return wide_shade_planes_ref(accel, *planes, alive, **kw)
+    parts = [wide_shade_planes_ref(accel, *(p[s:s + piece] for p in planes),
+                                   alive[s:s + piece], **kw) for s in range(0, n, piece)]
+    return {k: torch.cat([part[k] for part in parts]) for k in parts[0]}
+
+
+def _compare_hits(accel, planes, alive, label, gpu, exact=False, piece=None):
     """Kernel vs plain version on one ray set, stats off and on; returns
     (max error, kernel ms, plain ms, kernel output, bound). With stats on
     the kernel's hit planes must equal its planes with stats off, and on
     every ray whose t, id and material equal the plain version's bit for
     bit (at least 99% of the live rays), so must its per-ray node and leaf
     visits: a ray's walk depends on no other ray. With ``exact`` every
-    ray's t, id and material must equal the plain version's bit for bit."""
+    ray's t, id and material must equal the plain version's bit for bit.
+    ``piece``: the plain version runs on that many rays a call."""
     import torch
 
-    from atray_tpu_torch.kernels.wide_shade import (
-        OUTPUTS, STATS, wide_shade_planes, wide_shade_planes_ref)
+    from atray_tpu_torch.kernels.wide_shade import OUTPUTS, STATS, wide_shade_planes
 
     got = wide_shade_planes(accel, *planes, alive)
     got_st = wide_shade_planes(accel, *planes, alive, stats=True)
     visits = {}
-    want = wide_shade_planes_ref(accel, *planes, alive, visits=visits, stats=True)
+    want = _plain_hits(accel, planes, alive, piece, visits=visits, stats=True)
     n_diff, max_abs_t, nerr, hit = _planes_rules(got, want, alive, f"wide_shade {label}")
     if not all(torch.equal(got_st[k], got[k]) for k in OUTPUTS):
         raise AssertionError(f"wide_shade {label}: stats=True changes the hit planes")
@@ -514,7 +553,7 @@ def _compare_hits(accel, planes, alive, label, gpu, exact=False):
     al = alive.cpu().numpy()
     ms = _cuda_ms(lambda: wide_shade_planes(accel, *planes, alive), 20)
     ms_st = _cuda_ms(lambda: wide_shade_planes(accel, *planes, alive, stats=True), 20)
-    plain_ms = _host_ms(lambda: wide_shade_planes_ref(accel, *planes, alive))
+    plain_ms = _host_ms(lambda: _plain_hits(accel, planes, alive, piece))
     print(f"phase 3 wide_shade {label}: {alive.shape[0]} rays ({int(al.sum())} live, "
           f"{int(hit.sum())} hits): ids differ on {n_diff} (coincident faces), "
           f"max |dt| {max_abs_t:.3g}, max normal err {nerr:.3g}; kernel {ms:.4f} ms, "
@@ -2310,12 +2349,17 @@ def phase_probes(dev, gpu):
 LADDER_CAMERA = ((0.0, 1.0, 0.8), (0.0, -0.2, -4.0))   # bench.py's look_at_camera
 
 
+LADDER_ASSETS = {1: "Cube.obj", 2: "Monkey.obj", 3: "Deer.obj"}
+
+
 def _ladder_scene(n):
-    """``bench.py``'s ladder config ``n`` (1 or 2): (scene, settings, camera,
-    accel or None). Config 1: ``Cube.obj`` alone, 256x256, 1 spp, 1 bounce,
-    unsorted, by brute force; config 2: ``Monkey.obj`` on a floor under a
-    light sphere, 512x512, 4 spp, 3 bounces, NEE, the shaded accel at leaf
-    16. Each mesh scaled to 2.4 and centred at (0, -0.3, -4)."""
+    """``bench.py``'s ladder config ``n`` (1, 2 or 3): (scene, settings,
+    camera, accel or None). Config 1: ``Cube.obj`` alone, 256x256, 1 spp, 1
+    bounce, unsorted, by brute force; config 2: ``Monkey.obj`` on a floor
+    under a light sphere, 512x512, 4 spp, 3 bounces, NEE, the shaded accel
+    at leaf 16; config 3: ``Deer.obj`` on the floor, 1280x720, 16 spp, 3
+    bounces, sorted, the shaded accel at leaf 16. Each mesh scaled to 2.4
+    and centred at (0, -0.3, -4)."""
     import numpy as np
 
     from atray_tpu_torch.accel.shaded import build_shaded_accel
@@ -2332,23 +2376,28 @@ def _ladder_scene(n):
         ((9.0, 8.5, 7.0), (0.0, 0.0, 0.0), 0.0),      # light
     ])
     asset = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
-                         "Cube.obj" if n == 1 else "Monkey.obj")
+                         LADDER_ASSETS[n])
     mesh = translate_to(scale_to(load_obj(asset), 2.4), (0.0, -0.3, -4.0))
+    floor = Planes(normals=np.asarray([[0.0, 1.0, 0.0]], np.float32),
+                   offsets=np.asarray([-1.8], np.float32),
+                   material_id=np.asarray([2], np.int32))
     if n == 1:
         scene = build_scene([mesh], materials=mats)
         settings = RenderSettings(resolution=(256, 256), samples_per_pixel=1, bounce_limit=1,
                                   sort_bounces=False)
         accel = None
-    else:
-        floor = Planes(normals=np.asarray([[0.0, 1.0, 0.0]], np.float32),
-                       offsets=np.asarray([-1.8], np.float32),
-                       material_id=np.asarray([2], np.int32))
+    elif n == 2:
         light = Spheres(centers=np.asarray([[2.5, 3.0, -2.5]], np.float32),
                         radii=np.asarray([0.6], np.float32),
                         material_id=np.asarray([3], np.int32))
         scene = build_scene([mesh], planes=floor, spheres=light, materials=mats)
         settings = RenderSettings(resolution=(512, 512), samples_per_pixel=4, bounce_limit=3,
                                   nee=True)
+        accel = build_shaded_accel(scene, KDTreeConfig(leaf_size=16))
+    else:
+        scene = build_scene([mesh], planes=floor, materials=mats)
+        settings = RenderSettings(resolution=(1280, 720), samples_per_pixel=16, bounce_limit=3,
+                                  sort_bounces=True)
         accel = build_shaded_accel(scene, KDTreeConfig(leaf_size=16))
     w, h = settings.resolution
     cam = look_at_camera(*LADDER_CAMERA, h_fov=0.9, aspect=w / h)
@@ -3208,6 +3257,423 @@ def phase_output_slice(dev, gpu):
     return entry
 
 
+# phase 17: the host surfaces on the card: the native OBJ parser, the
+# command line (``atray_tpu_torch.cli``) at ladder config 3 and on the two
+# example scenes, its modes, the host tools and the demo
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PLAIN_PIECE_HITS = 4_147_200  # rays a call of the plain wide_shade (a slice chunk)
+CONFIG3_TOML = """\
+[render]
+resolution = [1280, 720]
+samples_per_pixel = 16
+bounce_limit = 3
+sort_bounces = true
+
+[accel]
+leaf_size = 16
+
+[camera]
+eye = [0.0, 1.0, 0.8]
+look_at = [0.0, -0.2, -4.0]
+h_fov = 0.9
+
+[[materials]]
+name = "sky"
+emission = [0.35, 0.45, 0.65]
+
+[[materials]]
+name = "body"
+albedo = [0.75, 0.55, 0.35]
+scatter = 0.15
+
+[[materials]]
+name = "floor"
+albedo = [0.6, 0.6, 0.65]
+
+[[materials]]
+name = "light"
+emission = [9.0, 8.5, 7.0]
+
+[[meshes]]
+obj = {obj}
+material = "body"
+scale_to = 2.4
+translate_to = [0.0, -0.3, -4.0]
+
+[[planes]]
+normal = [0.0, 1.0, 0.0]
+offset = -1.8
+material = "floor"
+"""
+
+
+def _cli(label, argv):
+    """``cli.main(argv)`` with its stdout and stderr captured, then printed
+    line by line after ``phase <label>``; the phase registry is emptied
+    first, so its table is this run's. Returns (printed paths, stderr
+    lines, seconds)."""
+    import io
+
+    from atray_tpu_torch import cli
+    from atray_tpu_torch.utils.profiling import reset_phases
+
+    reset_phases()
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    sec = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{label}: the command line exited {rc}")
+    lines = err.getvalue().splitlines()
+    for line in lines:
+        print(f"phase {label} | {line}")
+    return out.getvalue().split(), lines, sec
+
+
+@contextlib.contextmanager
+def _films_of_render(into):
+    """While the block runs, append every film ``wavefront.render`` returns
+    (the command line imports ``render`` when it runs)."""
+    from atray_tpu_torch.render import wavefront
+
+    real = wavefront.render
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        into.append(out[0] if isinstance(out, tuple) else out)
+        return out
+
+    wavefront.render = spy
+    try:
+        yield
+    finally:
+        wavefront.render = real
+
+
+@contextlib.contextmanager
+def _first_launches(got):
+    """While the block runs, keep clones of the arguments of the first
+    ``wide_shade_planes`` call ("wide_shade": ox..dz, alive: the camera
+    bounce) and of the first ``lane_take`` call ("lane_take": cols, idx:
+    the compaction's state pack, reached through ``lane_take_p``)."""
+    from atray_tpu_torch.kernels import lane_pack
+    from atray_tpu_torch.render import wavefront
+
+    real_ws, real_lt = wavefront.wide_shade_planes, lane_pack.lane_take
+
+    def ws(acc, *args, **kw):
+        got.setdefault("wide_shade", [a.clone() for a in args])
+        return real_ws(acc, *args, **kw)
+
+    def lt(cols, idx):
+        got.setdefault("lane_take", (cols.clone(), idx.clone()))
+        return real_lt(cols, idx)
+
+    wavefront.wide_shade_planes, lane_pack.lane_take, wavefront.lane_take = ws, lt, lt
+    try:
+        yield
+    finally:
+        wavefront.wide_shade_planes = real_ws
+        lane_pack.lane_take = wavefront.lane_take = real_lt
+
+
+def _check_film(label, f):
+    import numpy as np
+
+    f = f.detach().cpu().numpy() if hasattr(f, "detach") else np.asarray(f)
+    if not (np.isfinite(f).all() and f.min() >= 0 and f.max() <= 1 and f.mean() > 0.01):
+        raise AssertionError(f"{label}: film not finite in [0, 1] or black "
+                             f"(mean {float(np.nanmean(f))})")
+    return f
+
+
+def phase_native_parser(gpu):
+    """17a: the native parser on the three assets and a 139k-triangle OBJ,
+    array-equal to the Python parser."""
+    import tempfile
+
+    import numpy as np
+
+    from atray_tpu_torch import native
+    from atray_tpu_torch.scene import load_obj, procedural, save_obj
+
+    if not native.available():
+        raise AssertionError(f"17a: the native library did not build: {native.bindings._native.error}")
+    with tempfile.TemporaryDirectory() as tmp:
+        dragon = os.path.join(tmp, "Dragon.obj")
+        save_obj(dragon, procedural.dragon_proxy(target_tris=139_000, material=1))
+        for path in [os.path.join(ROOT, "assets", a) for a in ("Cube.obj", "Deer.obj",
+                                                                "Monkey.obj")] + [dragon]:
+            t0 = time.perf_counter()
+            nat = native.parse_obj_native(path)
+            t_nat = time.perf_counter() - t0
+            if nat is None:
+                raise AssertionError(f"17a: parse_obj_native returned None on {path}")
+            t0 = time.perf_counter()
+            py = load_obj(path, backend="python")
+            t_py = time.perf_counter() - t0
+            for k, a in nat.items():
+                b = getattr(py, k)
+                if a.shape[0] == 0:         # a TriMesh pads an empty table to a zero row
+                    a = np.zeros_like(b)
+                if a.dtype != b.dtype or not np.array_equal(a, b):
+                    raise AssertionError(f"17a: native {k} != the Python parser's on {path}")
+            name = "dragon_proxy(139_000) OBJ" if path == dragon else os.path.basename(path)
+            print(f"phase 17a native OBJ parser: {name} ({os.path.getsize(path)} bytes, "
+                  f"{nat['faces'].shape[0]} faces, {nat['vertices'].shape[0]} vertices): native "
+                  f"{t_nat:.4f} s, Python {t_py:.4f} s of host time ({t_py / t_nat:.1f}x); the six "
+                  f"arrays == the Python parser's [{gpu}]")
+
+
+def _same_scene(label, got, want):
+    import numpy as np
+
+    for part in ("mesh", "spheres", "planes", "materials"):
+        a, b = getattr(got, part), getattr(want, part)
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                raise AssertionError(f"{label}: {part}.{f.name} differs from the helper's")
+
+
+def phase_cli_config3(dev, tmp, gpu):
+    """17b: ladder config 3 through ``cli.main``: the scene against
+    ``_ladder_scene(3)``, the PNG against a direct render, the camera
+    bounce's ``wide_shade`` launch and the first ``lane_take`` launch against
+    their plain versions. Returns (toml path, the kernels-line numbers)."""
+    import numpy as np
+    import torch
+
+    from atray_tpu_torch import cli
+    from atray_tpu_torch.render.film import save_png
+    from atray_tpu_torch.render.rng import prng_key
+    from atray_tpu_torch.render.wavefront import render
+    from atray_tpu_torch.utils.profiling import phase_stats
+
+    toml = os.path.join(tmp, "ladder3.toml")
+    with open(toml, "w") as fh:
+        fh.write(CONFIG3_TOML.format(obj=json.dumps(os.path.join(ROOT, "assets", "Deer.obj"))))
+    scene_h, cam, s, accel_cfg, mesh_cfg = cli.load_scene_file(toml)
+    want_scene, want_s, want_cam, want_accel = _ladder_scene(3)
+    _same_scene("17b", scene_h, want_scene)
+    if s != want_s or accel_cfg.leaf_size != 16 or mesh_cfg.num_devices != 0 or not all(
+            np.array_equal(getattr(cam, f.name), getattr(want_cam, f.name))
+            for f in dataclasses.fields(cam)):
+        raise AssertionError("17b: the TOML's settings, camera or configs differ from "
+                             "_ladder_scene(3)'s")
+    (w, h), spp, bounces = s.resolution, s.samples_per_pixel, s.bounce_limit
+
+    # the first render at this width also grows the caching allocator: a
+    # first command, then the one whose launches and film are held
+    _, _, first_s = _cli("17b first", ["render", toml, "-o", os.path.join(tmp, "first.png")])
+    first_render_s = phase_stats()["render"]["min_s"]
+    png = os.path.join(tmp, "ladder3.png")
+    films = []
+    _reset_counts()
+    with _films_of_render(films):
+        paths, _, sec = _cli("17b", ["render", toml, "-o", png])
+    counts = _read_counts()
+    if paths != [png] or len(films) != 1 or films[0].device != dev:
+        raise AssertionError(f"17b: wrote {paths}, rendered {len(films)} films on "
+                             f"{[str(f.device) for f in films]}")
+    if counts["wide_shade"][0] != bounces or counts["lane_take"][0] <= 0:
+        raise AssertionError(f"17b: wide_shade {counts['wide_shade'][0]} launches (not one a "
+                             f"bounce), lane_take {counts['lane_take'][0]}")
+    _no_plain(counts, "17b")
+    f = _check_film("17b", films[0])
+    render_s = phase_stats()["render"]["min_s"]
+
+    scene, accel = want_scene.to(dev), want_accel.to(dev)
+    got = {}
+    with _first_launches(got):
+        film, stats = render(scene, cam, s, prng_key(0), accel=accel, return_stats=True)
+    live = int(stats["rays_cast"])
+    direct = save_png(os.path.join(tmp, "direct.png"), film)
+    if open(png, "rb").read() != open(direct, "rb").read():
+        raise AssertionError("17b: the command line's PNG != save_png of a direct render()")
+    if not torch.equal(film, films[0]):
+        raise AssertionError("17b: the command line's film != the direct render's")
+    print(f"phase 17b ladder config 3 through cli.main: Deer.obj ({scene.mesh.num_faces} tris), "
+          f"floor, {w}x{h} x {spp} spp x {bounces} bounces, one chunk, sort + lane pack: first "
+          f"command {first_s:.4f} s (render phase {first_render_s:.4f} s), second command "
+          f"{sec:.4f} s, its render phase {render_s:.4f} s, live rays {live}, "
+          f"{live / render_s:.6g} live rays/s; launches wide_shade {counts['wide_shade'][0]}, "
+          f"lane_take {counts['lane_take'][0]}, plain calls 0; load_scene_file's scene, "
+          f"settings and camera == _ladder_scene(3)'s; the PNG's bytes == save_png of a "
+          f"direct render() with prng_key(0); film std {f.std():.4f} [{gpu}]")
+
+    # the render's launches, captured from the direct render (the same
+    # inputs: its film equals the command line's bit for bit)
+    args = got["wide_shade"]
+    err, ms, plain_ms, _, bound = _compare_hits(accel, args[:6], args[6],
+                                                "(phase 17b) config 3 camera bounce", gpu,
+                                                piece=PLAIN_PIECE_HITS)
+    rays, alive_n = args[6].shape[0], int(args[6].sum())
+    print(f"phase 17b config 3 camera-bounce wide_shade: {alive_n} live of {rays} rays, held to "
+          f"the plain version under phase 3's rules (max error {err:.3g}); kernel {ms:.4f} ms, "
+          f"bound {bound[0]:.4f} ms by {bound[1]} ({ms / bound[0]:.2f}x), plain {plain_ms:.1f} ms "
+          f"in pieces of {PLAIN_PIECE_HITS} rays [{gpu}]")
+    cols, idx = got["lane_take"]
+    del got, args, film
+    # held bit for bit: the float planes as their int32 words
+    cols = cols.view(torch.int32)
+    lt_ms, lt_plain, lt_lib = _take_case(cols, idx, "config 3 state pack (float planes as "
+                                         "int32 words)", gpu, phase="17b")
+    # the take reads only the live rays' words: count those sources once,
+    # the index and every output word
+    sources = int((idx >= 0).sum())
+    c, word = cols.shape[0], cols.element_size()
+    lt_bound = _bound(c * sources * word + idx.nbytes + c * idx.shape[0] * word)
+    print(f"phase 17b config 3 lane_take (the compaction's state pack, C={c}, N={cols.shape[1]}, "
+          f"{sources} live sources): bound {lt_bound[0]:.4f} ms by {lt_bound[1]} "
+          f"({lt_ms / lt_bound[0]:.2f}x) [{gpu}]")
+    return toml, {
+        "wide_shade": {"launches": counts["wide_shade"][0], "err": err, "ms": ms,
+                       "plain_ms": plain_ms, "bound": bound, "rays": rays, "live_rays": alive_n},
+        "lane_take": {"launches": counts["lane_take"][0], "ms": lt_ms, "plain_ms": lt_plain,
+                      "bound": lt_bound, "library_ms": lt_lib, "rays": int(idx.shape[0])}}
+
+
+def phase_cli_examples(dev, tmp, gpu):
+    """17c: examples/cornell.toml and examples/arealight.toml through
+    ``cli.main`` at their own resolution and spp."""
+    from atray_tpu_torch import cli
+
+    for name, per_bounce in (("cornell", 1), ("arealight", 2)):   # NEE: hits and shadow rays
+        toml = os.path.join(ROOT, "examples", f"{name}.toml")
+        s = cli.load_scene_file(toml)[2]
+        films = []
+        _reset_counts()
+        with _films_of_render(films):
+            paths, _, sec = _cli(f"17c {name}", ["render", toml, "-o",
+                                                 os.path.join(tmp, f"{name}.png"), "--srgb"])
+        counts = _read_counts()
+        if len(films) != 1 or films[0].device != dev or len(paths) != 1:
+            raise AssertionError(f"17c {name}: {len(films)} films, paths {paths}")
+        if counts["wide_shade"][0] != per_bounce * s.bounce_limit or counts["lane_take"][0] <= 0:
+            raise AssertionError(f"17c {name}: wide_shade {counts['wide_shade'][0]}, lane_take "
+                                 f"{counts['lane_take'][0]} launches")
+        _no_plain(counts, f"17c {name}")
+        f = _check_film(f"17c {name}", films[0])
+        (w, h), spp = s.resolution, s.samples_per_pixel
+        print(f"phase 17c examples/{name}.toml through cli.main: {w}x{h} x {spp} spp x "
+              f"{s.bounce_limit} bounces{', NEE' if s.nee else ''}"
+              f"{', AA' if s.anti_aliasing else ''}: command {sec:.4f} s; launches wide_shade "
+              f"{counts['wide_shade'][0]}, lane_take {counts['lane_take'][0]}, plain calls 0; "
+              f"film finite in [0, 1], mean {f.mean():.4f}, std {f.std():.4f} [{gpu}]")
+
+
+def phase_cli_modes(toml, tmp, gpu):
+    """17d: --aov, --telemetry 4 and --progressive resumed from its
+    checkpoint, on config 3."""
+    import numpy as np
+
+    from atray_tpu_torch import cli
+
+    prefix = os.path.join(tmp, "ladder3_aov")
+    paths, _, sec = _cli("17d aov", ["render", toml, "-o", os.path.join(tmp, "aov.png"),
+                                     "--aov", prefix])
+    names = [f"{prefix}_{n}.png" for n in ("depth", "normal", "albedo", "emission")]
+    if paths[:4] != names or not all(os.path.getsize(p) > 0 for p in names):
+        raise AssertionError(f"17d: --aov wrote {paths}")
+    print(f"phase 17d --aov on config 3: beauty and 4 AOV PNGs in {sec:.4f} s [{gpu}]")
+
+    _reset_counts()
+    _, lines, sec = _cli("17d telemetry", ["render", toml, "-o", os.path.join(tmp, "tel.png"),
+                                           "--telemetry", "4"])
+    counts = _read_counts()
+    if not any(l.startswith("chunk wall (s)") for l in lines) or counts["wide_shade"][0] != 4 * 3:
+        raise AssertionError(f"17d: --telemetry 4 printed no table or launched wide_shade "
+                             f"{counts['wide_shade'][0]} times")
+    print(f"phase 17d --telemetry 4 on config 3: {sec:.4f} s, wide_shade {counts['wide_shade'][0]} "
+          f"launches (one a bounce in each of 4 chunks) [{gpu}]")
+
+    spb = cli.load_scene_file(toml)[2].samples_per_pixel
+    ck, whole = os.path.join(tmp, "ck.npz"), os.path.join(tmp, "whole.npz")
+    base = ["render", toml, "--seed", "4"]
+    t = []
+    for label, total, path, png in (("first", "16", ck, "p16.png"), ("resumed", "32", ck, "p32.png"),
+                                    ("whole", "32", whole, "w32.png")):
+        t.append(_cli(f"17d progressive {label}", base + [
+            "-o", os.path.join(tmp, png), "--progressive", total, "--checkpoint", path])[2])
+    a, b = np.load(ck), np.load(whole)
+    if not (int(a["batches_done"]) == int(b["batches_done"]) == -(-32 // spb)
+            and np.array_equal(a["film_sum"], b["film_sum"])):
+        raise AssertionError("17d: the resumed progressive film != the uninterrupted one")
+    if open(os.path.join(tmp, "p32.png"), "rb").read() != open(os.path.join(tmp, "w32.png"),
+                                                              "rb").read():
+        raise AssertionError("17d: the resumed progressive PNG != the uninterrupted one")
+    print(f"phase 17d --progressive on config 3 (batches of {spb} spp): 16 then resumed to 32 from "
+          f"the checkpoint {t[0]:.4f} + {t[1]:.4f} s, uninterrupted 32 {t[2]:.4f} s; film_sum "
+          f"and PNG bytes == the uninterrupted run's [{gpu}]")
+
+
+def phase_host_tools(tmp, gpu):
+    """17e: validate_bvh, compute_vertex_normals and save_cost_heatmap, with
+    their host seconds; then the demo as a subprocess from the root."""
+    import numpy as np
+
+    from atray_tpu_torch.accel.bvh import build_bvh, validate_bvh
+    from atray_tpu_torch.config import KDTreeConfig
+    from atray_tpu_torch.core.camera import look_at_camera
+    from atray_tpu_torch.scene import load_obj, procedural
+    from atray_tpu_torch.scene.transforms import compute_vertex_normals, scale_to, translate_to
+    from atray_tpu_torch.utils.debugviz import save_cost_heatmap
+
+    dragon = procedural.dragon_proxy(target_tris=139_000)
+    bvh = build_bvh(dragon.vertices, dragon.faces, KDTreeConfig(leaf_size=16))
+    t0 = time.perf_counter()
+    validate_bvh(bvh, dragon.num_faces)
+    t_val = time.perf_counter() - t0
+    deer = translate_to(scale_to(load_obj(os.path.join(ROOT, "assets", "Deer.obj")), 2.4),
+                        (0.0, -0.3, -4.0))
+    t0 = time.perf_counter()
+    smooth = compute_vertex_normals(deer)
+    t_vn = time.perf_counter() - t0
+    if not np.allclose(np.linalg.norm(smooth.normals, axis=1), 1.0, atol=1e-5):
+        raise AssertionError("17e: vertex normals are not unit length")
+    dbvh = build_bvh(deer.vertices, deer.faces, KDTreeConfig(leaf_size=16))
+    cam = look_at_camera(*LADDER_CAMERA, h_fov=0.9, aspect=320 / 180)
+    t0 = time.perf_counter()
+    heat = save_cost_heatmap(os.path.join(tmp, "cost.png"), dbvh, None, cam, 320, 180)
+    t_heat = time.perf_counter() - t0
+    print(f"phase 17e host tools: validate_bvh on dragon_proxy(139_000)'s BVH ({bvh.num_nodes} "
+          f"nodes, leaf 16) {t_val:.4f} s; compute_vertex_normals on Deer.obj "
+          f"({deer.num_vertices} vertices) {t_vn:.4f} s; save_cost_heatmap 320x180 on its BVH "
+          f"({dbvh.num_nodes} nodes) {t_heat:.4f} s, {os.path.getsize(heat)} bytes [{gpu}]")
+
+    out = os.path.join(tmp, "demo", "demo")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "atray_tpu_torch.examples.render_demo",
+                          "--out", out], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    sec = time.perf_counter() - t0
+    want = [f"{out}.png"] + [f"{out}_{n}.png" for n in ("depth", "normal", "albedo", "emission")]
+    printed = run.stdout.split()
+    if run.returncode != 0 or not all(p in printed and os.path.getsize(p) > 0 for p in want):
+        raise AssertionError(f"17e: the demo exited {run.returncode}: {run.stdout[-2000:]} "
+                             f"{run.stderr[-2000:]}")
+    print(f"phase 17e demo: python3 -m atray_tpu_torch.examples.render_demo from the root, exit "
+          f"0 in {sec:.2f} s (a process of its own, the kernels' library loaded from the build "
+          f"directory), five PNGs; its line: {run.stdout.splitlines()[0]} [{gpu}]")
+
+
+def phase_host_surfaces(dev, gpu):
+    """Phase 17; returns the command line's kernels-line numbers."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    phase_native_parser(gpu)
+    with tempfile.TemporaryDirectory() as tmp:
+        toml, entry = phase_cli_config3(dev, tmp, gpu)
+        phase_cli_examples(dev, tmp, gpu)
+        phase_cli_modes(toml, tmp, gpu)
+        phase_host_tools(tmp, gpu)
+    print(f"phase 17 host surfaces: {time.perf_counter() - t0:.1f} s")
+    return entry
+
+
 def _entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms, **rays):
     """One entry of the ``kernels`` line; the lineage walks add ``rays``
     (the rays of ``ms`` and ``bound_ms``) and ``plain_rays`` (of
@@ -3283,6 +3749,7 @@ def main() -> int:
     probes = phase_probes(dev, gpu)
     shadow = phase_oracle_slice(dev, gpu)
     gather = phase_output_slice(dev, gpu)
+    host = phase_host_surfaces(dev, gpu)
 
     lt_ms, lt_plain, lt_lib = lt[(14, 4_147_200, "pack")]
     n_chunk = 4_147_200
@@ -3300,9 +3767,18 @@ def main() -> int:
                "atray_tpu/kernels/wide_shade.py:43", gather["launches"], gather["err"],
                gather["ms"], gather["plain_ms"], gather["bound"], None, rays=gather["rays"],
                live_rays=gather["live_rays"]),
+        _entry("wide_shade (command line, ladder config 3)", "atray_tpu_torch/csrc/wide_shade.cu",
+               "atray_tpu/kernels/wide_shade.py:43", host["wide_shade"]["launches"],
+               host["wide_shade"]["err"], host["wide_shade"]["ms"],
+               host["wide_shade"]["plain_ms"], host["wide_shade"]["bound"], None,
+               rays=host["wide_shade"]["rays"], live_rays=host["wide_shade"]["live_rays"]),
         _entry("lane_take", "atray_tpu_torch/csrc/lane_take.cu",
                "atray_tpu/kernels/lane_pack.py:202", counts["lane_take"][0], 0.0,
                lt_ms, lt_plain, _bound((2 * 14 + 1) * 4 * n_chunk), lt_lib),
+        _entry("lane_take (command line, ladder config 3)", "atray_tpu_torch/csrc/lane_take.cu",
+               "atray_tpu/kernels/lane_pack.py:202", host["lane_take"]["launches"], 0.0,
+               host["lane_take"]["ms"], host["lane_take"]["plain_ms"], host["lane_take"]["bound"],
+               host["lane_take"]["library_ms"], rays=host["lane_take"]["rays"]),
         _entry("lane_scatter", "atray_tpu_torch/csrc/lane_scatter.cu",
                "atray_tpu/kernels/lane_pack.py:632", g_counts["lane_scatter"][0], ls_err,
                ls_ms, ls_plain, ls_bound, ls_lib),

@@ -128,13 +128,13 @@ def test_load_obj_matches_jax_python_parser():
     for name in ASSETS:
         path = os.path.join(ASSET_DIR, f"{name}.obj")
         want = jax_load_obj(path, backend="python")
-        got = load_obj(path)
-        for f in MESH_FIELDS:
-            a, b = np.asarray(getattr(want, f)), getattr(got, f)
-            assert a.dtype == b.dtype, (name, f)
-            np.testing.assert_array_equal(b, a, err_msg=f"{name} {f}")
-    with pytest.raises(NotImplementedError, match="native"):
-        load_obj(os.path.join(ASSET_DIR, "Cube.obj"), backend="native")
+        # "auto" takes the port's native parser, as the JAX package's does
+        for backend in ("auto", "native", "python"):
+            got = load_obj(path, backend=backend)
+            for f in MESH_FIELDS:
+                a, b = np.asarray(getattr(want, f)), getattr(got, f)
+                assert a.dtype == b.dtype, (name, backend, f)
+                np.testing.assert_array_equal(b, a, err_msg=f"{name} {backend} {f}")
 
 
 def test_save_obj_round_trip(tmp_path):

@@ -3,6 +3,7 @@ port's own bit-identities, shading helpers, and the import boundary."""
 
 import dataclasses
 import functools
+import os
 import subprocess
 import sys
 
@@ -244,12 +245,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "names = [m.name for m in pkgutil.walk_packages(atray_tpu_torch.__path__, 'atray_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
         "assert not any(k == 'atray_tpu' or k.startswith('atray_tpu.') for k in sys.modules)\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=120)
+                         timeout=120, cwd=root)
     assert out.returncode == 0, out.stderr
-    # the package's 45 modules, dist.train, kernels.wide_exact, the seven
-    # of probes/ and scene.objio among them
-    assert int(out.stdout.strip()) >= 45
+    # the package's 55 modules, dist.train, kernels.wide_exact, the seven
+    # of probes/, scene.objio, and the host surfaces among them; and
+    # chip_smoke.py
+    names = set(out.stdout.split())
+    assert len(names) >= 55
+    assert {"atray_tpu_torch.cli", "atray_tpu_torch.utils.debugviz",
+            "atray_tpu_torch.examples.render_demo", "atray_tpu_torch.native.bindings",
+            "atray_tpu_torch.scene.objio"} <= names
