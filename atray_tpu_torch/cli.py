@@ -5,7 +5,18 @@
         [--[no-]sort-bounces] [--[no-]lane-pack] [--chunk N] [--no-accel]
         [--progressive TOTAL_SPP [--checkpoint ck.npz] [--preview p.png]]
         [--telemetry N] [--aov PREFIX] [--device cuda|cpu]
+        [--mesh N] [--treelet] [--dist-backend nccl|gloo]
     python3 -m atray_tpu_torch.cli info
+
+Sharded renders run one process per rank, launched by ``torchrun``:
+
+    torchrun --nproc-per-node N -m atray_tpu_torch.cli render scene.toml \
+        --mesh N            # rays sharded over the N ranks
+    torchrun --nproc-per-node N -m atray_tpu_torch.cli render scene.toml \
+        --treelet           # triangles sharded, rays ride a ring
+
+Every rank renders its share and holds the film; rank 0 writes the PNG,
+the previews and checkpoints, and prints the progress and phase lines.
 
 (``atray-torch`` once the package is installed.) Progress goes to stderr:
 the scene line, a tick a chunk where the frame has several, a line a batch
@@ -35,10 +46,19 @@ Differences from the reference's command line:
   runs the plain PyTorch versions of the kernels, as the tests do).
 - A ``build`` phase loads the kernels' library (on the card only) and
   uploads the scene and accel, where the reference has ``compile``.
-- ``--mesh N`` with N other than 0, a ``[mesh] num_devices`` other than 0,
-  and ``--treelet`` parse, then raise ``NotImplementedError``: sharded and
-  treelet rendering are ``ROADMAP.md`` queue 1 item 3, and until then
-  ``--telemetry`` reports no per-shard ray counts.
+- ``--mesh N`` (or ``[mesh] num_devices``; -1 means every rank) shards
+  the rays over the ranks of the process group, which must number N (the
+  reference takes the first N devices of its one controller); ``--treelet``
+  shards the triangles over every rank (``dist/treelet.py``: kernel accels
+  when the faces number at least ranks x leaf size, else the brute-force
+  backend). Both join the group from ``torchrun``'s environment
+  (``dist.multihost.init_distributed``); a process started alone is a
+  world of one rank.
+- ``--dist-backend {nccl,gloo}``: the process group's backend, which a
+  process per rank needs and a single controller does not; by default
+  ``nccl`` on a CUDA device and ``gloo`` on the CPU. Two ranks that share
+  one card need ``gloo`` (NCCL refuses them).
+- Only rank 0 writes files and prints the progress and phase lines.
 - No ``bench`` subcommand until the port's bench exists (``ROADMAP.md``).
 - No JAX compilation-cache settings.
 """
@@ -52,8 +72,6 @@ import tomllib
 from typing import Dict
 
 import numpy as np
-
-_SHARDING = "sharded and treelet rendering are not ported yet (ROADMAP.md queue 1 item 3)"
 
 
 def _table(doc: dict, name: str, cls):
@@ -198,28 +216,71 @@ def _apply_flags(settings, args):
     return settings
 
 
+def _mesh_for(args, mesh_cfg):
+    """(the ray mesh, whether this process made the process group), or
+    (None, False) when neither ``--mesh``/``[mesh]`` nor ``--treelet`` asks
+    for one. The flag overrides ``[mesh] num_devices``; -1 means every
+    rank, and ``--treelet`` alone takes every rank."""
+    mesh_n = args.mesh or mesh_cfg.num_devices
+    if not (mesh_n or args.treelet):
+        return None, False
+    import torch.distributed as dist
+
+    from atray_tpu_torch.dist.mesh import make_device_mesh
+    from atray_tpu_torch.dist.multihost import init_distributed
+
+    owns = not dist.is_initialized()
+    init_distributed(backend=args.dist_backend, device=args.device)
+    return make_device_mesh(num_devices=mesh_n, device=args.device), owns and dist.is_initialized()
+
+
 def cmd_render(args) -> int:
-    from atray_tpu_torch.accel.shaded import build_shaded_accel
     from atray_tpu_torch.device import resolve_device
+    from atray_tpu_torch.utils.profiling import Phase
+
+    with Phase("load"):
+        scene, camera, settings, accel_cfg, mesh_cfg = load_scene_file(args.scene)
+        settings = _apply_flags(settings, args)
+    dmesh, owns_group = _mesh_for(args, mesh_cfg)
+    try:
+        return _render_command(args, scene, camera, settings, accel_cfg, dmesh,
+                               resolve_device(args.device) if dmesh is None else dmesh.device)
+    finally:
+        if owns_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _render_command(args, scene, camera, settings, accel_cfg, dmesh, dev) -> int:
+    """``cmd_render`` after the scene file is read: every rank renders;
+    rank 0 (or the one process without a mesh) writes and prints."""
+    from atray_tpu_torch.accel.shaded import build_shaded_accel
     from atray_tpu_torch.render.film import save_png
     from atray_tpu_torch.render.rng import prng_key
     from atray_tpu_torch.render.wavefront import render
     from atray_tpu_torch.utils.profiling import Phase, phase_report
 
-    dev = resolve_device(args.device)
-    with Phase("load"):
-        scene, camera, settings, accel_cfg, mesh_cfg = load_scene_file(args.scene)
-        settings = _apply_flags(settings, args)
-    mesh_n = args.mesh or mesh_cfg.num_devices      # the flag overrides [mesh]
-    if mesh_n or args.treelet:
-        raise NotImplementedError(f"--mesh {mesh_n}, --treelet {args.treelet}: {_SHARDING}")
-    print(f"scene: {scene.mesh.num_faces} tris, {scene.spheres.count} spheres, "
-          f"{scene.planes.count} planes; {settings.width}x{settings.height} "
-          f"@ {settings.samples_per_pixel}spp x{settings.bounce_limit} bounces",
-          file=sys.stderr)
+    lead = dmesh is None or dmesh.rank == 0
+
+    def say(text: str) -> None:
+        if lead:
+            print(text, file=sys.stderr, flush=True)
+
+    say(f"scene: {scene.mesh.num_faces} tris, {scene.spheres.count} spheres, "
+        f"{scene.planes.count} planes; {settings.width}x{settings.height} "
+        f"@ {settings.samples_per_pixel}spp x{settings.bounce_limit} bounces")
+    # the treelet render walks per-rank part accels, not the whole mesh's
+    treelet = args.treelet and not (args.progressive or args.telemetry)
     with Phase("accel_build"):
         accel = (build_shaded_accel(scene, accel_cfg)
-                 if scene.mesh.num_faces > 0 and settings.use_accel else None)
+                 if scene.mesh.num_faces > 0 and settings.use_accel and not treelet else None)
+    if dmesh is not None:
+        import torch.distributed as dist
+
+        backend = dist.get_backend(dmesh.group) if dmesh.group is not None else "none"
+        say(f"device mesh: {dmesh.size} rank(s), backend {backend}, rank 0 on {dmesh.device}")
+    scene_host = scene
     with Phase("build", block=True):
         if dev.type == "cuda":
             from atray_tpu_torch.kernels import _build
@@ -234,14 +295,15 @@ def cmd_render(args) -> int:
         preview = args.preview or (args.output + ".preview.png")
 
         def on_batch(state):
-            print(f"  batch {state.batches_done}: {state.spp_total} spp total", file=sys.stderr)
-            save_png(preview, state.film(), srgb=args.srgb)
+            say(f"  batch {state.batches_done}: {state.spp_total} spp total")
+            if lead:
+                save_png(preview, state.film(), srgb=args.srgb)
 
         with Phase("render", block=True):
             state = render_progressive(scene, camera, settings, total_spp=args.progressive,
                                        accel=accel, seed=args.seed,
                                        checkpoint_path=args.checkpoint, on_batch=on_batch,
-                                       device=dev)
+                                       device=dev, mesh=dmesh)
         film = state.film()
     elif args.telemetry:
         from atray_tpu_torch.render.telemetry import render_telemetry, tail_report
@@ -249,7 +311,27 @@ def cmd_render(args) -> int:
         with Phase("render", block=True):
             film, report = render_telemetry(scene, camera, settings, prng_key(args.seed),
                                             accel=accel, n_chunks=args.telemetry, device=dev)
-        tail_report(report, file=sys.stderr)
+        per_shard = None
+        if dmesh is not None:
+            # the shard balance, from the sharded render's counts
+            _, st = render(scene, camera, settings, prng_key(args.seed), accel=accel,
+                           device=dev, mesh=dmesh, return_stats=True)
+            per_shard = st["rays_cast_per_shard"].cpu().numpy()
+        if lead:
+            tail_report(report, rays_per_shard=per_shard, file=sys.stderr)
+    elif treelet:
+        from atray_tpu_torch.dist.treelet import build_treelet_accels, render_treelet
+
+        say(f"treelet sharding over {dmesh.size} rank(s)")
+        # kernel accels a part where the mesh is big enough to partition;
+        # small meshes take the brute-force backend
+        ta = None
+        if scene.mesh.num_faces >= dmesh.size * accel_cfg.leaf_size:
+            with Phase("bvh_build"):
+                ta = build_treelet_accels(scene_host, dmesh.size, accel_cfg)
+        with Phase("render", block=True):
+            film = render_treelet(scene, camera, settings, prng_key(args.seed), dmesh,
+                                  treelets=ta)
     else:
         n = settings.width * settings.height * settings.samples_per_pixel
         n_chunks = -(-n // settings.ray_chunk) if settings.ray_chunk else 1
@@ -260,10 +342,14 @@ def cmd_render(args) -> int:
             print(f"  chunk {done[0]}/{n_chunks}: {live / 1e6:.2f}M live rays traced",
                   file=sys.stderr, flush=True)
 
+        # the sharded render calls back nothing (every rank would tick)
         with Phase("render", block=True):
             film = render(scene, camera, settings, prng_key(args.seed), accel=accel,
-                          device=dev, progress_cb=tick if n_chunks > 1 else None)
+                          device=dev, mesh=dmesh,
+                          progress_cb=tick if n_chunks > 1 and dmesh is None else None)
 
+    if not lead:
+        return 0
     with Phase("save"):
         path = save_png(args.output, film, srgb=args.srgb)
     if args.aov:
@@ -317,7 +403,8 @@ def main(argv=None) -> int:
     pr.add_argument("--no-accel", action="store_true",
                     help="test every triangle by brute force")
     pr.add_argument("--mesh", type=int, default=0,
-                    help="shard rays over N devices (not ported yet: raises)")
+                    help="shard rays over the N ranks of the process group (-1: every rank; "
+                         "launch the ranks with torchrun)")
     pr.add_argument("--progressive", type=int, default=0,
                     help="total spp rendered in batches of render.samples_per_pixel")
     pr.add_argument("--checkpoint", default=None,
@@ -327,7 +414,10 @@ def main(argv=None) -> int:
     pr.add_argument("--telemetry", type=int, default=0, metavar="N",
                     help="render as N timed chunks and print the per-chunk cost table")
     pr.add_argument("--treelet", action="store_true",
-                    help="shard geometry over the device mesh (not ported yet: raises)")
+                    help="shard the triangles over the ranks; rays ride a ring")
+    pr.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="process-group backend for --mesh/--treelet (default: nccl on "
+                         "cuda, gloo on cpu; ranks sharing one card need gloo)")
     pr.add_argument("--aov", default=None, metavar="PREFIX",
                     help="also write AOV films (depth/normal/albedo/emission) as "
                          "PREFIX_<name>.png from one deterministic primary pass")

@@ -72,10 +72,10 @@ class KDTreeConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Device-mesh shape, parsed from a scene TOML's ``[mesh]`` table.
-    ``num_devices`` 0 means one device, -1 all visible devices. Only 0
-    renders in the port so far: the sharded render is
-    ``ROADMAP.md`` queue 1 item 3, and ``cli.cmd_render`` raises
-    ``NotImplementedError`` for any other count."""
+    ``num_devices`` 0 means no mesh (one process renders alone), -1 every
+    rank of the process group, N > 0 a mesh of N ranks, which must be the
+    world size (``dist.mesh.make_device_mesh``; a process is a rank in the
+    port, where the reference's one controller takes N of its devices)."""
 
     num_devices: int = 0
     axis_name: str = "rays"

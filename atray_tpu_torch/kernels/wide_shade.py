@@ -5,7 +5,8 @@
 float32 ray planes and a bool alive mask and returns, per ray, ``t``,
 ``id`` (int32 face id), the barycentric shading normal ``nx, ny, nz``
 (normalized) and ``mat`` (int32 material id). A miss is (INF, -1, 0, 0, 0,
-0); dead rays get the same sentinel without walking.
+0); dead rays get the same sentinel without walking. ``wide_shade_first_hit``
+is the same call on (R, 3) rows, with the normal as one (R, 3) tensor.
 
 With ``stats=True`` it also returns two int32 (R,) planes, the
 reference's traversal statistics: ``node_visits``, the nodes the ray
@@ -104,6 +105,23 @@ def wide_shade_planes(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz,
     _build.check(rc, "wide_shade")
     COUNTER.launches += 1
     return {k: out[k] for k in OUTPUTS + (STATS if stats else ())}
+
+
+def wide_shade_first_hit(accel: ShadedWideBVH, orig: torch.Tensor, dirn: torch.Tensor,
+                         alive: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """``wide_shade_planes`` on (R, 3) rays: dict(t, id, normal (R, 3), mat),
+    a miss (INF, -1, zeros, 0). ``alive`` (R,) bool, or float with 0 for a
+    dead ray (None: every ray live). The same kernel (or, on the CPU, its
+    plain version); an adapter for callers that hold rows, such as the
+    treelet rings."""
+    if alive is None:
+        alive = torch.ones(orig.shape[0], dtype=torch.bool, device=orig.device)
+    elif alive.dtype != torch.bool:
+        alive = alive != 0
+    fo = wide_shade_planes(accel, *(orig[:, k].contiguous() for k in range(3)),
+                           *(dirn[:, k].contiguous() for k in range(3)), alive.contiguous())
+    return {"t": fo["t"], "id": fo["id"],
+            "normal": torch.stack([fo["nx"], fo["ny"], fo["nz"]], dim=1), "mat": fo["mat"]}
 
 
 def wide_shade_planes_ref(accel: ShadedWideBVH, ox, oy, oz, dx, dy, dz,

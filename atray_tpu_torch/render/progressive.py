@@ -7,7 +7,10 @@ every batch, under the reference's keys, so a stopped job resumes where it
 stopped, and a checkpoint written by either package loads in the other.
 Batch b renders with the key ``fold_in(prng_key(seed), b)``, the
 reference's, so a resumed run equals one without a stop bit for bit, and
-its films are the reference's.
+its films are the reference's. With a ray mesh every batch is a sharded
+render (``render(mesh=)``, the reference's ``render_fn`` bound to a mesh):
+every rank accumulates the same film, and rank 0 alone writes the
+checkpoint.
 """
 
 from __future__ import annotations
@@ -67,12 +70,13 @@ def load_checkpoint(path: str) -> Optional[FilmState]:
 def render_progressive(scene, camera: Camera, settings: RenderSettings, total_spp: int,
                        accel=None, seed: int = 0, checkpoint_path: Optional[str] = None,
                        on_batch: Optional[Callable[[FilmState], None]] = None,
-                       device=None) -> FilmState:
+                       device=None, mesh=None) -> FilmState:
     """Render ``total_spp`` samples in batches of
     ``settings.samples_per_pixel`` on ``device`` (None: "cuda"), resuming
     from ``checkpoint_path`` where it holds a state and writing it after
     every batch. ``on_batch(state)`` runs after each batch (the live
-    progress hook)."""
+    progress hook). ``mesh`` (a ``dist.mesh.RayMesh``) shards each batch's
+    rays over its ranks, on the mesh's device; only its rank 0 writes."""
     spb = settings.samples_per_pixel
     nbatches = -(-total_spp // spb)
     state = load_checkpoint(checkpoint_path) if checkpoint_path else None
@@ -84,17 +88,19 @@ def render_progressive(scene, camera: Camera, settings: RenderSettings, total_sp
         state = FilmState(film_sum=np.zeros((h, w, 3), np.float32), batches_done=0,
                           spp_per_batch=spb, seed=seed)
     # the scene and accel go to the card once, not once a batch
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     scene, accel = scene.to(dev), _accel_on(accel, dev)
+    write = checkpoint_path and (mesh is None or mesh.rank == 0)
     base = prng_key(seed)
     for b in range(state.batches_done, nbatches):
-        film = render(scene, camera, settings, fold_in(base, b), accel=accel, device=dev)
+        film = render(scene, camera, settings, fold_in(base, b), accel=accel, device=dev,
+                      mesh=mesh)
         state.film_sum = state.film_sum + to_numpy(film)
         state.batches_done = b + 1
-        if checkpoint_path:
+        if write:
             save_checkpoint(checkpoint_path, state)
         if on_batch is not None:
             on_batch(state)
-    if checkpoint_path:
+    if write:
         save_checkpoint(checkpoint_path, state)
     return state

@@ -7,16 +7,15 @@
   cheap, model chunks dear). The film is ``render()``'s at that
   ``ray_chunk``, whose padding, ray ids and key split are the reference's.
 - ``tail_report`` prints min, p50, p90, max and imbalance (max over mean)
-  of the chunk times and live rays, in the reference's format.
-
-The reference's per-shard ray counts (``rays_cast_per_shard``) come with
-the port's sharded render.
+  of the chunk times and live rays, and of a sharded render's per-rank
+  live rays (``rays_cast_per_shard`` of ``render(mesh=)``), in the
+  reference's format.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,11 +66,14 @@ def _spread(xs) -> dict:
             "imbalance": float(a.max() / max(a.mean(), 1e-12))}
 
 
-def tail_report(report: dict, file=None) -> str:
+def tail_report(report: dict, rays_per_shard: Optional[np.ndarray] = None, file=None) -> str:
     """min/p50/p90/max and imbalance (max / mean; 1.0 is a balanced static
-    partition) of the chunk times and live rays."""
+    partition) of the chunk times and live rays, and of ``rays_per_shard``
+    (a sharded render's live rays a rank) where given."""
     rows = [("chunk wall (s)", _spread(report["chunk_s"])),
             ("chunk live rays", _spread(report["chunk_live_rays"]))]
+    if rays_per_shard is not None:
+        rows.append(("shard live rays", _spread(rays_per_shard)))
     lines = [f"{'telemetry':<18}{'min':>11}{'p50':>11}{'p90':>11}{'max':>11}{'imbal':>8}"]
     for name, s in rows:
         lines.append(f"{name:<18}{s['min']:>11.4g}{s['p50']:>11.4g}{s['p90']:>11.4g}"

@@ -74,9 +74,14 @@ give the keyed film when drawn from the same key.
 
 ``render(progress_cb=)`` calls the callback once per ray chunk with the
 chunk's rays cast, on the chunked branch only, as the reference does.
-Hit and occlusion overrides (the reference's treelet ring) have no port
-yet. The reference's TPU schedule switches (``ATRAY_*`` environment
-variables) are not carried: they select film-identical variants.
+``render(mesh=)`` shards the rays over the ranks of a ``dist.mesh.RayMesh``:
+each rank traces its contiguous slice of the padded frame and the colours
+are gathered on every rank, bit-equal to the one-rank film.
+``trace_radiance(hit_override=, occl_override=)`` replace the
+triangle-class nearest hit and the shadow rays' nearest t by the caller's
+query (the treelet rings of ``dist/treelet.py``). The reference's TPU
+schedule switches (``ATRAY_*`` environment variables) are not carried:
+they select film-identical variants.
 """
 
 from __future__ import annotations
@@ -457,12 +462,41 @@ def fused_hit(accel: ShadedWideBVH, face_table, ox, oy, oz, dx, dy, dz, alive,
     return _FusedHit.apply(accel, pair, face_table, ox, oy, oz, dx, dy, dz, alive)
 
 
-def _shade_fused(scene, face_table, ox, oy, oz, dx, dy, dz, t, nx, ny, nz, fid, mat):
-    """Hit planes of the fused path: material constants from the material
-    id, then spheres and planes patched in."""
-    hit = fid >= 0
+def _shade_ids(scene, _face_table, ox, oy, oz, dx, dy, dz, t, nx, ny, nz, mat, hit):
+    """Hit planes of a triangle-class hit given by its material id:
+    material constants from the id, then spheres and planes patched in."""
     mats = resolve_material_comps(scene, mat, hit)
     return _patch_spheres_planes(scene, ox, oy, oz, dx, dy, dz, t, nx, ny, nz, hit, *mats)
+
+
+def _shade_fused(scene, face_table, ox, oy, oz, dx, dy, dz, t, nx, ny, nz, fid, mat):
+    """Hit planes of the fused path (``_shade_ids`` with hit = fid >= 0)."""
+    return _shade_ids(scene, face_table, ox, oy, oz, dx, dy, dz, t, nx, ny, nz, mat, fid >= 0)
+
+
+def _shade_consts(scene, _face_table, ox, oy, oz, dx, dy, dz, t, nx, ny, nz, hit,
+                  emr, emg, emb, alr, alg, alb, scat):
+    """Hit planes of a triangle-class hit that carries its material
+    constants: spheres and planes patched in."""
+    return _patch_spheres_planes(scene, ox, oy, oz, dx, dy, dz, t, nx, ny, nz, hit,
+                                 emr, emg, emb, alr, alg, alb, scat)
+
+
+def _override_hit(hit_override, st):
+    """The triangle-class hit of ``hit_override(o (R, 3), d (R, 3), alive)``
+    on the bounce's detached rays, as (hit planes, the shading that reads
+    them): the fused form ``(t, normal (R, 3), emission (R, 3), albedo
+    (R, 3), scatter, hit)`` or the id form ``(t, normal, material id,
+    hit)``."""
+    o3 = torch.stack([st.ox, st.oy, st.oz], dim=1).detach()
+    d3 = torch.stack([st.dx, st.dy, st.dz], dim=1).detach()
+    out = hit_override(o3, d3, st.alive)
+    if len(out) == 6:
+        t, n, em, al, sc, hit = out
+        return ((t, n[:, 0], n[:, 1], n[:, 2], hit, em[:, 0], em[:, 1], em[:, 2],
+                 al[:, 0], al[:, 1], al[:, 2], sc), _shade_consts)
+    t, n, mat, hit = out
+    return (t, n[:, 0], n[:, 1], n[:, 2], mat, hit), _shade_ids
 
 
 # ---------------------------------------------------------------------------
@@ -707,12 +741,19 @@ def _merge_light_check(scene, t, ox, oy, oz, dx, dy, dz, dist, lid):
 
 
 @torch.no_grad()
-def occlusion(scene: Scene, accel, ox, oy, oz, dx, dy, dz, dist, lid, live) -> torch.Tensor:
+def occlusion(scene: Scene, accel, ox, oy, oz, dx, dy, dz, dist, lid, live,
+              occl_override: Optional[Callable] = None) -> torch.Tensor:
     """True where something other than the picked light blocks the shadow
-    ray before ``dist``: the ``t`` plane of ``wide_shade`` over the
-    ``live`` rays for a ``ShadedWideBVH``, ``nearest_hit_ids`` for the
+    ray before ``dist``: the triangle-class nearest t from
+    ``occl_override(o (R, 3), d (R, 3), live)`` where given (the treelet
+    path's shadow-ray ring), else the ``t`` plane of ``wide_shade`` over
+    the ``live`` rays for a ``ShadedWideBVH``, ``nearest_hit_ids`` for the
     gather accels and for None. Discrete: the inputs are detached."""
     ox, oy, oz, dx, dy, dz, dist = (x.detach() for x in (ox, oy, oz, dx, dy, dz, dist))
+    if occl_override is not None:
+        t = occl_override(torch.stack([ox, oy, oz], dim=1), torch.stack([dx, dy, dz], dim=1),
+                          live)
+        return _merge_light_check(scene, t, ox, oy, oz, dx, dy, dz, dist, lid)
     if isinstance(accel, ShadedWideBVH):
         t = wide_shade_planes(accel, ox, oy, oz, dx, dy, dz, live)["t"]
         return _merge_light_check(scene, t, ox, oy, oz, dx, dy, dz, dist, lid)
@@ -861,9 +902,12 @@ def _drawer(key, uniforms: Optional[torch.Tensor], ray_ids: torch.Tensor) -> Dra
 
 def bounce_step(scene: Scene, accel, face_table, st: WaveState, b: int, draw: Draw,
                 pair: bool = False, lights: Optional[Lights] = None,
-                face_uv: Optional[torch.Tensor] = None) -> WaveState:
+                face_uv: Optional[torch.Tensor] = None,
+                hit_override: Optional[Callable] = None,
+                occl_override: Optional[Callable] = None) -> WaveState:
     """One wavefront bounce over flat (R,) planes: the hit query (with
-    ``pair``, the pair-binned one), then ``_shade_bounce``, checkpointed
+    ``pair``, the pair-binned one; with ``hit_override``, the caller's,
+    ``_override_hit``), then ``_shade_bounce``, checkpointed
     when autograd records it. ``face_uv`` (a textured scene) sends every
     accel down the gather path, whose shading samples the texture. With
     ``lights`` the checkpointed shading gets an occluder that keeps the
@@ -874,7 +918,9 @@ def bounce_step(scene: Scene, accel, face_table, st: WaveState, b: int, draw: Dr
     ox, oy, oz, dx, dy, dz = st.ox, st.oy, st.oz, st.dx, st.dy, st.dz
     # rays cast = live paths entering the bounce
     rc = st.rc + st.alive.sum()
-    if accel is None or isinstance(accel, _GATHER_ACCELS) or face_uv is not None:
+    if hit_override is not None:
+        hit, shade_hit = _override_hit(hit_override, st)
+    elif accel is None or isinstance(accel, _GATHER_ACCELS) or face_uv is not None:
         ids = nearest_hit_ids(scene, torch.stack([ox, oy, oz], dim=1),
                               torch.stack([dx, dy, dz], dim=1), accel, alive=st.alive)
         hit = tuple(ids)
@@ -889,7 +935,7 @@ def bounce_step(scene: Scene, accel, face_table, st: WaveState, b: int, draw: Dr
     def occlude(*shadow):
         # the first call walks; the checkpoint's recompute reads its plane
         if not kept:
-            kept.append(occlusion(scene, accel, *shadow))
+            kept.append(occlusion(scene, accel, *shadow, occl_override=occl_override))
         return kept[0]
 
     def shade(*planes):
@@ -1034,7 +1080,9 @@ def trace_radiance(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
                    accel=None, sort_rays: bool = False, nee: bool = False,
                    return_stats: bool = False,
                    ray_ids: Optional[torch.Tensor] = None,
-                   lane_pack: bool = True, pair_bounces: bool = False):
+                   lane_pack: bool = True, pair_bounces: bool = False,
+                   hit_override: Optional[Callable] = None,
+                   occl_override: Optional[Callable] = None):
     """Path-trace each ray to its radiance (R, 3) on the rays' device (the
     scene, a host accel and ``uniforms`` are moved there). ``accel`` is a
     ``ShadedWideBVH`` (fused hit; ``pair_bounces`` takes the pair-binned
@@ -1047,7 +1095,18 @@ def trace_radiance(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
     keyed draw, and then ``key`` may be None. ``nee`` adds next-event
     estimation to the spheres and the emissive triangles. Differentiable with respect to the scene's float leaves
     and the rays. With ``return_stats`` also returns ``{"rays_cast": int64
-    tensor}``, the live paths summed over bounces."""
+    tensor}``, the live paths summed over bounces.
+
+    ``hit_override(o (R, 3), d (R, 3), alive)`` replaces the triangle-class
+    nearest hit (the accel is then not walked for hits; spheres and planes
+    are still merged here). It returns ``(t, normal (R, 3), material id,
+    hit)``, or the fused form ``(t, normal, emission (R, 3), albedo (R, 3),
+    scatter, hit)``; its ray inputs are detached (which face a ray hits
+    carries no derivative), and its outputs are taken as they come. With
+    NEE and a light it needs ``occl_override(o, d, live) -> t``, the
+    shadow rays' triangle-class nearest t, and raises
+    ``NotImplementedError`` without one. A textured scene under an
+    override is shaded untextured, as in the reference."""
     dev = orig.device
     scene = scene.to(dev)
     accel = _accel_on(accel, dev)
@@ -1056,19 +1115,29 @@ def trace_radiance(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
     if uniforms is not None:
         uniforms = torch.as_tensor(uniforms, dtype=torch.float32, device=dev)
     lights, face_table, face_uv = _trace_tables(scene, accel, nee, orig, dirn)
+    if hit_override is not None:
+        if lights is not None and occl_override is None:
+            raise NotImplementedError(
+                "NEE with hit_override needs an occl_override occlusion query "
+                "(the treelet path passes its shadow-ray ring)")
+        face_uv = None
     color, rays_cast = _trace(scene, accel, face_table, orig, dirn, ray_ids,
                               bounce_limit, _drawer(key, uniforms, ray_ids), sort_rays,
-                              lane_pack, pair_bounces, lights, face_uv)
+                              lane_pack, pair_bounces, lights, face_uv, hit_override,
+                              occl_override)
     if return_stats:
         return color, {"rays_cast": rays_cast}
     return color
 
 
 def _trace(scene, accel, face_table, orig, dirn, ray_ids, bounce_limit, draw,
-           sort_rays, lane_pack, pair_bounces=False, lights=None, face_uv=None):
+           sort_rays, lane_pack, pair_bounces=False, lights=None, face_uv=None,
+           hit_override=None, occl_override=None):
     """The bounce loop of ``trace_radiance`` on a scene and accel already on
     the rays' device: (color (R, 3), rays_cast). ``face_uv`` (a textured
-    scene) takes the gather path and no pair bounces."""
+    scene) takes the gather path and no pair bounces. Every bounce runs on
+    every call, whatever rays are alive: an override's collectives see the
+    same calls on every rank."""
     dev = orig.device
     r = orig.shape[0]
     ones = torch.ones(r, dtype=torch.float32, device=dev)
@@ -1085,7 +1154,8 @@ def _trace(scene, accel, face_table, orig, dirn, ray_ids, bounce_limit, draw,
 
     def step(st, b):
         return bounce_step(scene, later if b else primary, face_table, st, b, draw,
-                           pair=pair and b > 0, lights=lights, face_uv=face_uv)
+                           pair=pair and b > 0, lights=lights, face_uv=face_uv,
+                           hit_override=hit_override, occl_override=occl_override)
 
     start = 0
     if bounce_limit > 0:
@@ -1135,6 +1205,24 @@ def from_tile_order(x: torch.Tensor, w: int, h: int, spp: int) -> torch.Tensor:
     return t.permute(2, 0, 3, 1, 4, 5).reshape(-1, c)
 
 
+def _pad_rays(orig, dirn, ray_ids, uniforms, pad: int):
+    """The rays with ``pad`` parked rays appended (origin 1e7, heading +z:
+    they hit nothing, and their colour is dropped), whose ids continue the
+    last id, and zero uniforms for them."""
+    if not pad:
+        return orig, dirn, ray_ids, uniforms
+    dev = orig.device
+    orig = torch.cat([orig, torch.full((pad, 3), 1.0e7, dtype=orig.dtype, device=dev)])
+    park = torch.tensor([[0.0, 0.0, 1.0]], dtype=dirn.dtype, device=dev)
+    dirn = torch.cat([dirn, park.expand(pad, 3)])
+    ray_ids = torch.cat([ray_ids, ray_ids[-1] + 1 + torch.arange(
+        pad, dtype=ray_ids.dtype, device=dev)])
+    if uniforms is not None:
+        uniforms = torch.cat([uniforms, uniforms.new_zeros(
+            (uniforms.shape[0], pad, uniforms.shape[2]))], dim=1)
+    return orig, dirn, ray_ids, uniforms
+
+
 def _trace_chunked(scene, orig, dirn, ray_ids, settings: RenderSettings, key, accel,
                    uniforms=None, progress_cb: Optional[Callable[[int], None]] = None):
     """Trace a flat ray set in chunks of ``settings.ray_chunk`` (a Python
@@ -1155,17 +1243,7 @@ def _trace_chunked(scene, orig, dirn, ray_ids, settings: RenderSettings, key, ac
 
     if not chunk or chunk >= n:
         return trace(orig, dirn, ray_ids, uniforms)
-    pad = (-n) % chunk
-    if pad:
-        dev = orig.device
-        orig = torch.cat([orig, torch.full((pad, 3), 1.0e7, dtype=orig.dtype, device=dev)])
-        park = torch.tensor([[0.0, 0.0, 1.0]], dtype=dirn.dtype, device=dev)
-        dirn = torch.cat([dirn, park.expand(pad, 3)])
-        ray_ids = torch.cat([ray_ids, ray_ids[-1] + 1 + torch.arange(
-            pad, dtype=ray_ids.dtype, device=dev)])
-        if uniforms is not None:
-            uniforms = torch.cat([uniforms, uniforms.new_zeros(
-                (uniforms.shape[0], pad, uniforms.shape[2]))], dim=1)
+    orig, dirn, ray_ids, uniforms = _pad_rays(orig, dirn, ray_ids, uniforms, (-n) % chunk)
     colors, rays_cast = [], 0
     for s in range(0, orig.shape[0], chunk):
         color, rc = trace(orig[s:s + chunk], dirn[s:s + chunk], ray_ids[s:s + chunk],
@@ -1184,10 +1262,32 @@ def clip01(x: torch.Tensor) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, torch.zeros_like(x)), torch.ones_like(x))
 
 
+def _trace_on_mesh(scene, orig, dirn, ray_ids, settings: RenderSettings, key, accel,
+                   uniforms, mesh, axis_name: str):
+    """The frame's rays padded to a multiple of the ranks (parked rays with
+    ids n.., zero uniforms), this rank's contiguous slice traced by
+    ``_trace_chunked``, the colours gathered on every rank and the pad rows
+    dropped. Returns (color (N, 3), rays_cast, rays_cast_per_shard: one
+    int64 a rank)."""
+    from atray_tpu_torch.dist import mesh as dmesh
+
+    dmesh.check_axis(mesh, axis_name)
+    n = orig.shape[0]
+    orig, dirn, ray_ids, uniforms = _pad_rays(orig, dirn, ray_ids, uniforms, (-n) % mesh.size)
+    part = dmesh.shard_slice(orig.shape[0], mesh)
+    color, rc = _trace_chunked(scene, orig[part], dirn[part], ray_ids[part], settings, key,
+                               accel, None if uniforms is None else uniforms[:, part])
+    color = dmesh.gather_rows(color, mesh)[:n]
+    per_shard = dmesh.gather_rows(torch.as_tensor(rc, dtype=torch.int64,
+                                                  device=orig.device).reshape(1), mesh)
+    return color, per_shard.sum(), per_shard
+
+
 def render(scene: Scene, camera: Camera, settings: RenderSettings, key,
            accel=None, uniforms: Optional[torch.Tensor] = None,
            return_stats: bool = False, device=None,
-           progress_cb: Optional[Callable[[int], None]] = None):
+           progress_cb: Optional[Callable[[int], None]] = None,
+           mesh=None, axis_name: str = "rays"):
     """Full render -> linear-RGB film (H, W, 3) in [0, 1] on ``device``
     (None: "cuda"; "cpu" runs the plain versions of the kernels). A host
     scene or accel is moved there. ``key`` is a uint32[2] key
@@ -1198,8 +1298,21 @@ def render(scene: Scene, camera: Camera, settings: RenderSettings, key,
     leaves (``Scene.with_params``) and its texture
     (``dataclasses.replace(scene, texture=t)``); the film clamp is
     ``clip01``. ``progress_cb(rays_cast_of_the_chunk)`` is called once per
-    chunk where ``settings.ray_chunk`` cuts the frame in several."""
-    dev = resolve_device(device)
+    chunk where ``settings.ray_chunk`` cuts the frame in several.
+
+    ``mesh`` (a ``dist.mesh.RayMesh``, whose ``axis_name`` must be the one
+    given) shards the rays over its ranks, each rank calling ``render``
+    with the same arguments: every rank makes the frame's camera rays, pads
+    them to a multiple of the ranks, traces its own slice (chunked as
+    ``settings.ray_chunk`` says) and gathers the colours, so every rank
+    returns the film, bit-equal to the one-rank film. It runs on the mesh's
+    device (``device`` must be None or that one); ``progress_cb`` is not
+    called, as in the reference; the stats add ``rays_cast_per_shard``, one
+    int64 a rank, which ``rays_cast`` sums. The area lights come from the
+    concrete scene, the same on every rank."""
+    dev = resolve_device(device) if mesh is None or device is not None else mesh.device
+    if mesh is not None and dev != mesh.device:
+        raise ValueError(f"render on {dev}, but the mesh's rank computes on {mesh.device}")
     scene = scene.to(dev)
     accel = _accel_on(accel, dev)
     w, h = settings.resolution
@@ -1214,11 +1327,16 @@ def render(scene: Scene, camera: Camera, settings: RenderSettings, key,
         uniforms = torch.as_tensor(uniforms, dtype=torch.float32, device=dev)
         uniforms = torch.stack([to_tile_order(u, w, h, spp) for u in uniforms])
     ray_ids = torch.arange(orig.shape[0], dtype=torch.int32, device=dev)
-    color, rays_cast = _trace_chunked(scene, orig, dirn, ray_ids, settings, bounce_key,
-                                      accel, uniforms, progress_cb)
+    stats = {}
+    if mesh is None:
+        color, stats["rays_cast"] = _trace_chunked(scene, orig, dirn, ray_ids, settings,
+                                                   bounce_key, accel, uniforms, progress_cb)
+    else:
+        color, stats["rays_cast"], stats["rays_cast_per_shard"] = _trace_on_mesh(
+            scene, orig, dirn, ray_ids, settings, bounce_key, accel, uniforms, mesh, axis_name)
     color = from_tile_order(color, w, h, spp)
     film = color.reshape(spp, h, w, 3).mean(dim=0)
     film = clip01(film)
     if return_stats:
-        return film, {"rays_cast": rays_cast}
+        return film, stats
     return film

@@ -247,6 +247,34 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     ``compute_vertex_normals`` and ``save_cost_heatmap`` with their host
     seconds, and ``python3 -m atray_tpu_torch.examples.render_demo`` as a
     subprocess from the root: exit 0, five PNGs.
+18. the sharded serving path: two ranks, each a process of its own
+    (``chip_smoke.py --rank R ...``), joined by a gloo group over 127.0.0.1
+    on the one card (NCCL refuses two ranks on one device); a rank that
+    fails, or runs past ``RANK_TIMEOUT_S``, fails the phase, and both are
+    killed. (a) the slice through ``render(mesh=)``: each rank traces
+    8,294,400 rays in 2 chunks; the counts set to 0 before a timed frame,
+    ``wide_shade`` once a bounce a chunk, ``lane_take`` launched, no plain
+    version; every rank's film equal to the local film bit for bit (rank 0
+    also renders the frame alone), the live rays per shard summing to its
+    rays_cast; per-rank frame seconds and the gathers' seconds and bytes;
+    each rank's camera-bounce ``wide_shade`` launch and first ``lane_take``
+    launch (captured from a warm-up frame) held bit for bit against the
+    plain versions, with their bounds, the ranks in turn (the kernels line
+    takes rank 1's, the floor and dragon half); (b) the slice through
+    ``render_treelet`` with ``TreeletAccels`` (2 parts, leaf 16): a timed
+    frame with ``wide_shade`` launched once a hop (2 hops x 5 bounces), the
+    film against the local film (pixels differing by more than 1e-5 at
+    most ``TIE_PIXELS``: an equal-t tie), each hop's rays, bytes, local
+    query seconds and transfer seconds, and each rank's first ring hop
+    launch held bit for bit against the plain version (the ranks in turn);
+    (c) ``examples/cornell.toml`` through ``cli.main`` on both ranks with
+    ``--mesh 2 --nee`` (its PNG byte-equal to the one-rank command's),
+    ``--telemetry 4`` (the per-shard row) and ``--treelet --nee`` (the
+    shadow ring), then ``torchrun --standalone --nproc-per-node 2 -m
+    atray_tpu_torch.cli`` with ``--mesh 2 --nee``, its PNG byte-equal too;
+    (d) a one-rank NCCL group in this process: the slice through
+    ``render(mesh=)`` equal to the local film, ``assemble_film`` and an
+    ``all_reduce``.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every profile (phases 4, 8, 9, 11, 12) prints device time by kernel
@@ -3389,6 +3417,24 @@ def _check_film(label, f):
     return f
 
 
+def _hold_take(cols, idx, label, gpu, phase):
+    """``_take_case`` on a captured state pack (float planes held bit for
+    bit as their int32 words), with its bound: the take reads only the live
+    rays' words, so the live sources once, the index and every output word;
+    returns the kernels-line numbers."""
+    import torch
+
+    cols = cols.view(torch.int32)
+    ms, plain_ms, lib_ms = _take_case(cols, idx, label, gpu, phase=phase)
+    sources = int((idx >= 0).sum())
+    c, word = cols.shape[0], cols.element_size()
+    bound = _bound(c * sources * word + idx.nbytes + c * idx.shape[0] * word)
+    print(f"phase {phase} lane_take {label} (C={c}, N={cols.shape[1]}, {sources} live sources): "
+          f"bound {bound[0]:.4f} ms by {bound[1]} ({ms / bound[0]:.2f}x) [{gpu}]")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound": bound,
+            "rays": int(idx.shape[0])}
+
+
 def phase_native_parser(gpu):
     """17a: the native parser on the three assets and a 139k-triangle OBJ,
     array-equal to the Python parser."""
@@ -3517,23 +3563,11 @@ def phase_cli_config3(dev, tmp, gpu):
           f"in pieces of {PLAIN_PIECE_HITS} rays [{gpu}]")
     cols, idx = got["lane_take"]
     del got, args, film
-    # held bit for bit: the float planes as their int32 words
-    cols = cols.view(torch.int32)
-    lt_ms, lt_plain, lt_lib = _take_case(cols, idx, "config 3 state pack (float planes as "
-                                         "int32 words)", gpu, phase="17b")
-    # the take reads only the live rays' words: count those sources once,
-    # the index and every output word
-    sources = int((idx >= 0).sum())
-    c, word = cols.shape[0], cols.element_size()
-    lt_bound = _bound(c * sources * word + idx.nbytes + c * idx.shape[0] * word)
-    print(f"phase 17b config 3 lane_take (the compaction's state pack, C={c}, N={cols.shape[1]}, "
-          f"{sources} live sources): bound {lt_bound[0]:.4f} ms by {lt_bound[1]} "
-          f"({lt_ms / lt_bound[0]:.2f}x) [{gpu}]")
+    take = _hold_take(cols, idx, "config 3 state pack", gpu, "17b")
     return toml, {
         "wide_shade": {"launches": counts["wide_shade"][0], "err": err, "ms": ms,
                        "plain_ms": plain_ms, "bound": bound, "rays": rays, "live_rays": alive_n},
-        "lane_take": {"launches": counts["lane_take"][0], "ms": lt_ms, "plain_ms": lt_plain,
-                      "bound": lt_bound, "library_ms": lt_lib, "rays": int(idx.shape[0])}}
+        "lane_take": {"launches": counts["lane_take"][0], **take}}
 
 
 def phase_cli_examples(dev, tmp, gpu):
@@ -3674,6 +3708,461 @@ def phase_host_surfaces(dev, gpu):
     return entry
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the sharded serving path, two ranks on one card
+# ---------------------------------------------------------------------------
+
+RANKS = 2                     # processes, each a rank of one gloo group on cuda:0
+RANK_TIMEOUT_S = 420          # both ranks' whole run; the parent kills them after
+TORCHRUN_TIMEOUT_S = 240
+CORNELL = os.path.join(ROOT, "examples", "cornell.toml")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _timed_gathers(into, dev):
+    """While the block runs, time every ``dist.mesh.gather_rows`` (a device
+    synchronize on each side) and append (seconds, bytes sent, bytes
+    gathered)."""
+    import torch
+
+    from atray_tpu_torch.dist import mesh as dmesh
+
+    real = dmesh.gather_rows
+
+    def spy(x, mesh):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = real(x, mesh)
+        torch.cuda.synchronize(dev)
+        into.append((time.perf_counter() - t0, x.nbytes, out.nbytes))
+        return out
+
+    dmesh.gather_rows = spy
+    try:
+        yield
+    finally:
+        dmesh.gather_rows = real
+
+
+@contextlib.contextmanager
+def _first_hop(got):
+    """While the block runs, keep clones of the first ring hop's
+    ``wide_shade_first_hit`` rays ("planes": ox..dz, "alive")."""
+    from atray_tpu_torch.kernels import wide_shade
+
+    real = wide_shade.wide_shade_first_hit
+
+    def spy(acc, orig, dirn, alive=None):
+        if "planes" not in got:
+            got["planes"] = [x[:, k].contiguous().clone() for x in (orig, dirn) for k in range(3)]
+            got["alive"] = (alive != 0).clone()
+        return real(acc, orig, dirn, alive)
+
+    wide_shade.wide_shade_first_hit = spy
+    try:
+        yield
+    finally:
+        wide_shade.wide_shade_first_hit = real
+
+
+def _in_turns(mesh, fn):
+    """``fn()`` on each rank in turn, the others waiting at a barrier, so
+    that a timing has the card to itself; returns this rank's result."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(mesh.size):
+        if mesh.rank == r:
+            out = fn()
+        dist.barrier()
+    return out
+
+
+def phase_sharded_slice(scene_host, accel_host, mesh, gpu):
+    """18a (each rank): the slice through ``render(mesh=)``: a warm-up frame
+    (its camera-bounce ``wide_shade`` launch and first ``lane_take`` launch
+    captured), then the counts set to 0 and a timed frame; rank 0 renders
+    the frame alone, which the sharded film must equal bit for bit; then
+    each rank in turn holds its captured launches against the plain
+    versions. Returns (the rank's numbers, the local film on rank 0 or
+    None)."""
+    import torch
+
+    from atray_tpu_torch.render.rng import prng_key
+    from atray_tpu_torch.render.wavefront import render
+
+    dev, rank = mesh.device, mesh.rank
+    scene, accel = scene_host.to(dev), accel_host.to(dev)
+    settings, cam = _slice_settings()
+    (w, h), spp, bounces = settings.resolution, settings.samples_per_pixel, settings.bounce_limit
+    got = {}
+    t0 = time.perf_counter()
+    with _first_launches(got):
+        render(scene, cam, settings, prng_key(0), accel=accel, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+
+    gathers = []
+    _reset_counts()
+    with _timed_gathers(gathers, dev):
+        t0 = time.perf_counter()
+        film, st = render(scene, cam, settings, prng_key(1), accel=accel, mesh=mesh,
+                          return_stats=True)
+        per_shard = st["rays_cast_per_shard"].tolist()         # synchronizes
+        frame_s = time.perf_counter() - t0
+    counts = _read_counts()
+    chunks = -(-(w * h * spp // mesh.size) // settings.ray_chunk)
+    if counts["wide_shade"][0] != bounces * chunks or counts["lane_take"][0] <= 0:
+        raise AssertionError(f"18a rank {rank}: wide_shade {counts['wide_shade'][0]} launches "
+                             f"(not {bounces} a chunk of {chunks}), lane_take "
+                             f"{counts['lane_take'][0]}")
+    _no_plain(counts, f"18a rank {rank}")
+    f = _check_film(f"18a rank {rank}", film)
+    g_s = sum(g[0] for g in gathers)
+    print(f"phase 18a rank {rank} of {mesh.size} (gloo, {dev}): the slice through render(mesh=), "
+          f"{w}x{h} x {spp} spp x {bounces} bounces, its {w * h * spp // mesh.size} rays in "
+          f"{chunks} chunks: warm-up {warm_s:.4f} s, frame {frame_s:.4f} s; live rays per "
+          f"shard {per_shard} (sum {sum(per_shard)}); {len(gathers)} gathers "
+          f"{g_s:.4f} s ({', '.join(f'{g[0]:.4f} s: {g[1]} B sent, {g[2]} B gathered' for g in gathers)}); "
+          f"launches wide_shade {counts['wide_shade'][0]}, lane_take {counts['lane_take'][0]}, "
+          f"plain calls 0; film sha256 {_digest(film)}, std {f.std():.4f} [{gpu}]")
+    res = {"frame_s": frame_s, "warm_s": warm_s, "per_shard": per_shard,
+           "rays_cast": int(st["rays_cast"]), "digest": _digest(film),
+           "launches": {k: counts[k][0] for k in ("wide_shade", "lane_take")},
+           "gathers": gathers}
+    local = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        local, lst = render(scene, cam, settings, prng_key(1), accel=accel, return_stats=True)
+        live = int(lst["rays_cast"])
+        local_s = time.perf_counter() - t0
+        if not torch.equal(local, film) or live != sum(per_shard):
+            raise AssertionError(f"18a: the sharded film != the local film, or rays_cast "
+                                 f"{sum(per_shard)} != {live}")
+        print(f"phase 18a rank 0: the frame alone (render() with no mesh, the other rank "
+              f"idle) {local_s:.4f} s, rays_cast {live} == the sum over shards; the sharded "
+              f"film == the local film bit for bit [{gpu}]")
+        res["local_s"], res["local_digest"] = local_s, _digest(local)
+
+    def hold():
+        args = got["wide_shade"]
+        err, ms, plain_ms, _, bound = _compare_hits(
+            accel, args[:6], args[6], f"(phase 18a) rank {rank} camera bounce", gpu, exact=True)
+        return {"wide_shade": {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound,
+                               "rays": args[6].shape[0], "live_rays": int(args[6].sum())},
+                "lane_take": _hold_take(*got["lane_take"], f"rank {rank} state pack", gpu,
+                                        "18a")}
+
+    res.update(_in_turns(mesh, hold))
+    del got
+    return res, local
+
+
+def phase_treelet_slice(scene_host, mesh, local, gpu):
+    """18b (each rank): the slice through ``render_treelet`` with
+    ``TreeletAccels`` (one part a rank, leaf 16): a warm-up frame (its
+    first ring hop's ``wide_shade`` launch captured), then the counts set
+    to 0 and a timed frame with the hop log; the film against rank 0's
+    local film (pixels differing by more than 1e-5 at most
+    ``TIE_PIXELS``); the captured launch against the plain version bit for
+    bit, one rank at a time."""
+    import torch
+
+    from atray_tpu_torch.config import KDTreeConfig
+    from atray_tpu_torch.dist.treelet import build_treelet_accels, render_treelet
+    from atray_tpu_torch.render.rng import prng_key
+
+    dev, rank = mesh.device, mesh.rank
+    settings, cam = _slice_settings()
+    (w, h), spp, bounces = settings.resolution, settings.samples_per_pixel, settings.bounce_limit
+    t0 = time.perf_counter()
+    ta = build_treelet_accels(scene_host, mesh.size, KDTreeConfig(leaf_size=16))
+    build_s = time.perf_counter() - t0
+    part = ta.local(rank, dev)
+    part_mb = sum(getattr(part, k).nbytes for k in ("cboxes", "clinks", "caxis", "tris")) / 1e6
+    got = {}
+    t0 = time.perf_counter()
+    with _first_hop(got):
+        render_treelet(scene_host, cam, settings, prng_key(0), mesh, treelets=ta)
+    torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+
+    hops = []
+    _reset_counts()
+    t0 = time.perf_counter()
+    film, st = render_treelet(scene_host, cam, settings, prng_key(1), mesh, treelets=ta,
+                              return_stats=True, hop_log=hops)
+    per_shard = st["rays_cast_per_shard"].tolist()
+    frame_s = time.perf_counter() - t0
+    counts = _read_counts()
+    if counts["wide_shade"][0] != bounces * mesh.size or counts["lane_take"][0] <= 0:
+        raise AssertionError(f"18b rank {rank}: wide_shade {counts['wide_shade'][0]} launches "
+                             f"(not {mesh.size} hops x {bounces} bounces), lane_take "
+                             f"{counts['lane_take'][0]}")
+    _no_plain(counts, f"18b rank {rank}")
+    _check_film(f"18b rank {rank}", film)
+    kern = sum(x["kernel_s"] for x in hops)
+    xfer = sum(x["transfer_s"] for x in hops)
+    print(f"phase 18b rank {rank}: TreeletAccels of the slice mesh, {mesh.size} parts "
+          f"(host build {build_s:.4f} s; this rank's part {ta.num_nodes} wide nodes padded, "
+          f"{ta.tris.shape[1]} record rows, wide depth {ta.max_depth}, {part_mb:.1f} MB on "
+          f"the card): warm-up {warm_s:.4f} s, frame {frame_s:.4f} s (its {len(hops)} hops "
+          f"synchronized for the log), live rays per shard {per_shard}; hops: local query "
+          f"and merge {kern:.4f} s, transfer {xfer:.4f} s; launches wide_shade "
+          f"{counts['wide_shade'][0]}, lane_take {counts['lane_take'][0]}, plain calls 0; film "
+          f"sha256 {_digest(film)} [{gpu}]")
+    for x in hops:
+        print(f"phase 18b rank {rank} hop {x['hop']} ({x['ring']}): {x['rays']} rays, "
+              f"{x['bytes'] / 1e6:.1f} MB, query+merge {x['kernel_s']:.4f} s, transfer "
+              f"{x['transfer_s']:.4f} s ({x['bytes'] / max(x['transfer_s'], 1e-9) / 1e9:.2f} "
+              f"GB/s)")
+    res = {"frame_s": frame_s, "warm_s": warm_s, "build_s": build_s, "per_shard": per_shard,
+           "digest": _digest(film), "launches": counts["wide_shade"][0], "hops": hops}
+    if rank == 0:
+        diff = (film - local).abs().amax(dim=2)
+        share = float((diff > 1e-5).double().mean())
+        print(f"phase 18b the treelet film against the local film: max |diff| "
+              f"{float(diff.max()):.3g}, {share:.6f} of pixels differ by more than 1e-5 "
+              f"(limit {TIE_PIXELS}: an equal-t tie may pick a coincident face) [{gpu}]")
+        if share > TIE_PIXELS:
+            raise AssertionError(f"18b: {share} of the treelet film's pixels differ")
+        res["max_diff"], res["share"] = float(diff.max()), share
+
+    def hold():
+        err, ms, plain_ms, _, bound = _compare_hits(
+            part, got["planes"], got["alive"], f"(phase 18b) rank {rank} first ring hop", gpu,
+            exact=True, piece=PLAIN_PIECE_HITS)
+        print(f"phase 18b rank {rank} first ring hop: wide_shade on its own part, "
+              f"{int(got['alive'].sum())} live of {got['alive'].shape[0]} rays, bit-equal to "
+              f"the plain version: {ms:.4f} ms, {ms / bound[0]:.2f}x its bound of "
+              f"{bound[0]:.4f} ms by {bound[1]} (phase 3's: bytes and the plain version's "
+              f"visits) [{gpu}]")
+        return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound,
+                "rays": got["alive"].shape[0], "live_rays": int(got["alive"].sum())}
+
+    res["wide_shade"] = _in_turns(mesh, hold)
+    del got
+    return res
+
+
+def phase_sharded_cli(mesh, out, gpu):
+    """18c (each rank): ``examples/cornell.toml`` through ``cli.main`` on
+    the two ranks: ``--mesh 2 --nee`` (rank 0 writes the PNG the parent
+    holds against the one-rank command's), ``--telemetry 4`` with its
+    per-shard row, and ``--treelet --nee`` (the shadow ring, the light
+    sphere)."""
+    from atray_tpu_torch import cli
+
+    s = cli.load_scene_file(CORNELL)[2]
+    rank = mesh.rank
+    base = ["render", CORNELL, "--nee", "--dist-backend", "gloo"]
+    res = {}
+    for name, extra, want in (("mesh", ["--mesh", "2"], 2 * s.bounce_limit),
+                              ("telemetry", ["--mesh", "2", "--telemetry", "4"], None),
+                              ("treelet", ["--treelet"], 2 * mesh.size * s.bounce_limit)):
+        _reset_counts()
+        png = os.path.join(out, f"cornell_{name}.png")
+        _, lines, sec = _cli(f"18c rank {rank} {name}", base + extra + ["-o", png])
+        counts = _read_counts()
+        if want is not None and counts["wide_shade"][0] != want:
+            raise AssertionError(f"18c rank {rank} {name}: wide_shade {counts['wide_shade'][0]} "
+                                 f"launches, not {want}")
+        _no_plain(counts, f"18c rank {rank} {name}")
+        if rank == 0 and name == "telemetry" and not any(
+                line.startswith("shard live rays") for line in lines):
+            raise AssertionError("18c: --telemetry printed no per-shard row")
+        print(f"phase 18c rank {rank} cornell {' '.join(extra)} --nee: {sec:.4f} s, wide_shade "
+              f"{counts['wide_shade'][0]} launches [{gpu}]")
+        res[name] = {"s": sec, "wide_shade": counts["wide_shade"][0]}
+    return res
+
+
+def rank_main(argv) -> int:
+    """One rank of phase 18: ``chip_smoke.py --rank R --world N --port P
+    --out DIR``, as ``phase_sharded`` starts it. It joins the gloo group
+    over 127.0.0.1 on cuda:0, runs 18a-18c and writes its numbers to
+    DIR/rank<R>.json."""
+    import argparse
+
+    import torch
+
+    p = argparse.ArgumentParser(prog="chip_smoke.py --rank")
+    for flag in ("--rank", "--world", "--port"):
+        p.add_argument(flag, type=int, required=True)
+    p.add_argument("--out", required=True)
+    a = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke rank: no CUDA device", file=sys.stderr)
+        return 2
+    import torch.distributed as dist
+
+    from atray_tpu_torch.accel.shaded import build_shaded_accel
+    from atray_tpu_torch.config import KDTreeConfig
+    from atray_tpu_torch.dist.mesh import make_device_mesh
+    from atray_tpu_torch.dist.multihost import init_distributed
+    from atray_tpu_torch.kernels import _build
+
+    _build.load()          # built by the parent: loaded from the build directory
+    init_distributed(f"tcp://127.0.0.1:{a.port}", a.world, a.rank, backend="gloo")
+    try:
+        mesh = make_device_mesh(a.world, device="cuda:0")
+        gpu = _gpu_line()
+        t0 = time.perf_counter()
+        scene_host = _slice_scene()
+        accel_host = build_shaded_accel(scene_host, KDTreeConfig(leaf_size=16))
+        print(f"phase 18 rank {a.rank}: host build of the slice {time.perf_counter() - t0:.2f} s")
+        res = {}
+        res["18a"], local = phase_sharded_slice(scene_host, accel_host, mesh, gpu)
+        res["18b"] = phase_treelet_slice(scene_host, mesh, local, gpu)
+        del local
+        res["18c"] = phase_sharded_cli(mesh, a.out, gpu)
+        with open(os.path.join(a.out, f"rank{a.rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _wait_ranks(procs, logs, timeout):
+    """Wait for every rank; kill them all when one fails or at ``timeout``."""
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [i for i, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad or time.monotonic() > deadline:
+                why = (f"rank {bad[0]} exited {procs[bad[0]].returncode}" if bad
+                       else f"the ranks still ran after {timeout} s")
+                tails = "\n".join(f"--- rank {i} ---\n{open(logs[i]).read()[-3000:]}"
+                                  for i in range(len(procs)))
+                raise AssertionError(f"phase 18: {why}; the logs' ends:\n{tails}")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 18: rank {i} exited {p.returncode}:\n"
+                                 f"{open(logs[i]).read()[-3000:]}")
+
+
+def phase_nccl_one_rank(scene, accel, dev, gpu):
+    """18d (the parent): a one-rank NCCL group (the backend ``init_distributed``
+    picks on the card): the slice through ``render(mesh=)`` equal to the
+    local film bit for bit, ``assemble_film`` of its rows and an
+    ``all_reduce``, so NCCL's gathers are built and launched. Two ranks on
+    one card cannot share NCCL."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from atray_tpu_torch.dist.mesh import make_device_mesh
+    from atray_tpu_torch.dist.multihost import assemble_film, host_local_slice, init_distributed
+    from atray_tpu_torch.render.rng import prng_key
+    from atray_tpu_torch.render.wavefront import render
+
+    init_distributed(f"tcp://127.0.0.1:{_free_port()}", 1, 0, device=dev)
+    try:
+        backend = dist.get_backend()
+        mesh = make_device_mesh(1, device=dev)
+        settings, cam = _slice_settings()
+        local = render(scene, cam, settings, prng_key(1), accel=accel)
+        t0 = time.perf_counter()
+        film, st = render(scene, cam, settings, prng_key(1), accel=accel, mesh=mesh,
+                          return_stats=True)
+        per_shard = st["rays_cast_per_shard"].tolist()
+        sec = time.perf_counter() - t0
+        rows = assemble_film(film[host_local_slice(film.shape[0])])
+        x = torch.arange(1024, dtype=torch.float32, device=dev)
+        y = x.clone()
+        dist.all_reduce(y)
+        if backend != "nccl" or not torch.equal(film, local) or not np.array_equal(
+                rows, film.cpu().numpy()) or not torch.equal(x, y):
+            raise AssertionError(f"18d: backend {backend}; the one-rank mesh's film, "
+                                 "assembled rows or all_reduce differ")
+        print(f"phase 18d one-rank {backend} group on {dev}: the slice through render(mesh=) "
+              f"{sec:.4f} s, rays per shard {per_shard}, == the local film bit for bit; "
+              f"assemble_film and all_reduce through NCCL equal their inputs [{gpu}]")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(scene, accel, dev, gpu):
+    """Phase 18; returns each rank's numbers."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()          # the ranks share the card with this process
+    with tempfile.TemporaryDirectory() as tmp:
+        one = os.path.join(tmp, "cornell_one.png")
+        _cli("18c one rank", ["render", CORNELL, "--nee", "-o", one])
+        port = _free_port()
+        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(RANKS)]
+        t0 = time.perf_counter()
+        procs = []
+        for r in range(RANKS):
+            with open(logs[r], "w") as fh:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--rank", str(r), "--world",
+                     str(RANKS), "--port", str(port), "--out", tmp],
+                    cwd=ROOT, stdout=fh, stderr=subprocess.STDOUT))
+        _wait_ranks(procs, logs, RANK_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        for r in range(RANKS):
+            for line in open(logs[r]).read().splitlines():
+                if line.startswith("phase "):
+                    print(line)
+        res = []
+        for r in range(RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                res.append(json.load(fh))
+        a0 = res[0]["18a"]
+        if any(x["18a"]["digest"] != a0["local_digest"] or x["18a"]["per_shard"] != a0["per_shard"]
+               or x["18b"]["digest"] != res[0]["18b"]["digest"] for x in res):
+            raise AssertionError("phase 18: the ranks' films or shard counts differ")
+        png = open(os.path.join(tmp, "cornell_mesh.png"), "rb").read()
+        if png != open(one, "rb").read():
+            raise AssertionError("18c: the --mesh 2 PNG != the one-rank command's")
+        print(f"phase 18 ranks: {RANKS} processes on one card over gloo (NCCL refuses two "
+              f"ranks on one device) in {ranks_s:.2f} s; every rank's slice film == the local "
+              f"film (sha256 {a0['local_digest']}), sum of live rays per shard "
+              f"{sum(a0['per_shard'])} == the local rays_cast; the treelet films equal on every "
+              f"rank; cornell --mesh 2 --nee PNG == the one-rank command's byte for byte [{gpu}]")
+
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+             str(RANKS), "-m", "atray_tpu_torch.cli", "render", CORNELL, "--nee", "--mesh",
+             str(RANKS), "--dist-backend", "gloo", "-o", os.path.join(tmp, "torchrun.png")],
+            cwd=ROOT, capture_output=True, text=True, timeout=TORCHRUN_TIMEOUT_S)
+        sec = time.perf_counter() - t0
+        if run.returncode != 0 or open(os.path.join(tmp, "torchrun.png"), "rb").read() != png:
+            raise AssertionError(f"18c: torchrun exited {run.returncode} or its PNG differs: "
+                                 f"{run.stdout[-2000:]} {run.stderr[-3000:]}")
+        for line in run.stderr.splitlines():
+            if line.startswith(("device mesh", "scene:", "render ")):
+                print(f"phase 18c torchrun | {line}")
+        print(f"phase 18c torchrun --standalone --nproc-per-node {RANKS} -m atray_tpu_torch.cli "
+              f"render examples/cornell.toml --nee --mesh {RANKS} --dist-backend gloo: exit 0 in "
+              f"{sec:.2f} s (two processes, each loading the kernels' library), its PNG == the "
+              f"one-rank command's byte for byte [{gpu}]")
+    phase_nccl_one_rank(scene, accel, dev, gpu)
+    print(f"phase 18 sharded serving path: {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def _entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms, **rays):
     """One entry of the ``kernels`` line; the lineage walks add ``rays``
     (the rays of ``ms`` and ``bound_ms``) and ``plain_rays`` (of
@@ -3750,6 +4239,10 @@ def main() -> int:
     shadow = phase_oracle_slice(dev, gpu)
     gather = phase_output_slice(dev, gpu)
     host = phase_host_surfaces(dev, gpu)
+    sharded = phase_sharded(scene, accel, dev, gpu)
+    # rank 1 traces the frame's lower half (the floor and most of the
+    # dragon); rank 0's camera bounce is sky, its first pack empty
+    sa, sb = sharded[1]["18a"], sharded[1]["18b"]
 
     lt_ms, lt_plain, lt_lib = lt[(14, 4_147_200, "pack")]
     n_chunk = 4_147_200
@@ -3772,6 +4265,15 @@ def main() -> int:
                host["wide_shade"]["err"], host["wide_shade"]["ms"],
                host["wide_shade"]["plain_ms"], host["wide_shade"]["bound"], None,
                rays=host["wide_shade"]["rays"], live_rays=host["wide_shade"]["live_rays"]),
+        _entry("wide_shade (ray-sharded slice, rank 1 of 2)", "atray_tpu_torch/csrc/wide_shade.cu",
+               "atray_tpu/kernels/wide_shade.py:43", sa["launches"]["wide_shade"],
+               sa["wide_shade"]["err"], sa["wide_shade"]["ms"], sa["wide_shade"]["plain_ms"],
+               sa["wide_shade"]["bound"], None, rays=sa["wide_shade"]["rays"],
+               live_rays=sa["wide_shade"]["live_rays"]),
+        _entry("wide_shade (treelet ring hop, rank 1 of 2)", "atray_tpu_torch/csrc/wide_shade.cu",
+               "atray_tpu/kernels/wide_shade.py:43", sb["launches"], sb["wide_shade"]["err"],
+               sb["wide_shade"]["ms"], sb["wide_shade"]["plain_ms"], sb["wide_shade"]["bound"],
+               None, rays=sb["wide_shade"]["rays"], live_rays=sb["wide_shade"]["live_rays"]),
         _entry("lane_take", "atray_tpu_torch/csrc/lane_take.cu",
                "atray_tpu/kernels/lane_pack.py:202", counts["lane_take"][0], 0.0,
                lt_ms, lt_plain, _bound((2 * 14 + 1) * 4 * n_chunk), lt_lib),
@@ -3779,6 +4281,10 @@ def main() -> int:
                "atray_tpu/kernels/lane_pack.py:202", host["lane_take"]["launches"], 0.0,
                host["lane_take"]["ms"], host["lane_take"]["plain_ms"], host["lane_take"]["bound"],
                host["lane_take"]["library_ms"], rays=host["lane_take"]["rays"]),
+        _entry("lane_take (ray-sharded slice, rank 1 of 2)", "atray_tpu_torch/csrc/lane_take.cu",
+               "atray_tpu/kernels/lane_pack.py:202", sa["launches"]["lane_take"], 0.0,
+               sa["lane_take"]["ms"], sa["lane_take"]["plain_ms"], sa["lane_take"]["bound"],
+               sa["lane_take"]["library_ms"], rays=sa["lane_take"]["rays"]),
         _entry("lane_scatter", "atray_tpu_torch/csrc/lane_scatter.cu",
                "atray_tpu/kernels/lane_pack.py:632", g_counts["lane_scatter"][0], ls_err,
                ls_ms, ls_plain, ls_bound, ls_lib),
@@ -3826,4 +4332,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[1:]) if sys.argv[1:2] == ["--rank"] else main())

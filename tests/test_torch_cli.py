@@ -262,9 +262,10 @@ def test_unported_options_and_missing_card_raise(tmp_path):
     toml = _toml(tmp_path, RENDER_TOML)
     meshed = _toml(tmp_path, RENDER_TOML + "\n[mesh]\nnum_devices = 8\n", "meshed.toml")
     out = str(tmp_path / "x.png")
-    for argv in (["render", toml, "--mesh", "2"], ["render", meshed],
-                 ["render", toml, "--treelet"]):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    # a process started alone is a world of one rank: a mesh of 2 or 8
+    # names both counts (sharded renders: tests/test_torch_dist.py)
+    for argv in (["render", toml, "--mesh", "2"], ["render", meshed]):
+        with pytest.raises(ValueError, match="ranks asked for, but the process group has 1"):
             cli.main(argv + ["-o", out, "--device", "cpu"])
     assert not os.path.exists(out)
     if not torch.cuda.is_available():
