@@ -88,6 +88,34 @@ def gather_rows(x: torch.Tensor, mesh: RayMesh) -> torch.Tensor:
     return torch.cat(parts)
 
 
+class _GatherRows(torch.autograd.Function):
+    """``gather_rows`` with a backward: the cotangent of the gathered rows,
+    cut to this rank's own block. It is not summed over the ranks (as
+    ``torch.distributed.nn.functional.all_gather``'s backward is): every
+    rank computes the same loss from the same gathered rows, so each
+    block's cotangent is already whole on its own rank, and a sum would
+    count it ``mesh.size`` times. The replicated leaves are summed once,
+    after ``autograd.grad``, by ``dist.train.reduce_grads``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.rows, ctx.rank = x.shape[0], mesh.rank
+        return gather_rows(x.detach(), mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo = ctx.rank * ctx.rows
+        return grad[lo:lo + ctx.rows], None
+
+
+def gather_rows_grad(x: torch.Tensor, mesh: RayMesh) -> torch.Tensor:
+    """``gather_rows`` that autograd differentiates: its backward hands
+    each rank its own block of the cotangent and runs no collective."""
+    if mesh.group is None:
+        return x
+    return _GatherRows.apply(x, mesh)
+
+
 def shard_slice(n: int, mesh: RayMesh) -> slice:
     """The contiguous block of ``n`` rays (a multiple of ``mesh.size``) that
     this rank traces."""

@@ -12,20 +12,36 @@ normal, material id, face id), where shading runs through
 ``trace_radiance``'s ``hit_override`` seam exactly as in the replicated
 path. NEE's shadow rays ride a second, leaner ring (``occl_override``).
 
-Two local queries, as in the reference:
+Local queries, as in the reference:
 
 - ``TreeletGeom`` (``build_treelets``): each part's face records, brute
   force by ``core/intersect.py::first_triangle_hit`` (the oracle path);
 - ``TreeletAccels`` (``build_treelet_accels``): one shaded wide BVH a part,
   walked by the ``wide_shade`` kernel (``wide_shade_first_hit``) at every
-  hop, its baked face ids remapped to global ones.
-
-The reference's differentiable backends, ``TreeletParts`` and
-``TreeletShards``, are ``ROADMAP.md`` queue 1 item 3b; ``render_treelet``
-raises ``NotImplementedError`` for them.
+  hop, its baked face ids remapped to global ones;
+- the differentiable backends, brute force like ``TreeletGeom``, whose
+  record tables are built in the graph from the parameters:
+  ``TreeletParts`` (``build_treelet_parts``: the scene stays replicated,
+  each rank builds its own part's records from it, ``treelet_records``)
+  and ``TreeletShards`` (``build_treelet_shards``: the vertex and normal
+  slices are born sharded, rank r holds only part r's, ``shard_records``,
+  and its gradients land on them; ``merge_vertex_grads`` and
+  ``merge_normal_grads`` reconcile the copies of boundary vertices).
+  The discrete ring (which face wins, ``ring_first_fid``) is detached; each
+  ray's winning record row then comes home through ``diff_row_pickup``, a
+  second ring whose backward is its transpose: the row cotangents ride the
+  ring the other way (send to rank - 1) and are added into the owning
+  rank's records, staged through pinned host memory under gloo like the
+  forward hops. The ray's t, normal and material are replayed from the row
+  on the live rays, so gradients reach the vertices also through later
+  bounces' origins.
 
 Differences from the reference: one process per rank (the tables are built
-on the host of every rank, and each rank uploads only its own part);
+on the host of every rank, and each rank uploads only its own part; the
+film's gather hands each rank back only its own rays' cotangent, and the
+replicated leaves' gradients are summed after ``autograd.grad`` by
+``dist.train.reduce_grads``, where the reference's ``jax.grad`` of its one
+program returns them summed);
 ``num_parts`` must equal the ranks. A hop's payload travels as one
 float32 buffer (int32 planes as their bits). Gloo's ``send``/``recv`` take
 host tensors only: on a CUDA device under gloo (two ranks sharing one card)
@@ -47,7 +63,13 @@ import torch.distributed as dist
 from atray_tpu_torch.accel.shaded import STRIDE32, ShadedWideBVH, build_shaded_accel
 from atray_tpu_torch.config import KDTreeConfig, RenderSettings
 from atray_tpu_torch.core.camera import Camera, camera_rays
-from atray_tpu_torch.core.intersect import INF, first_triangle_hit, normalize
+from atray_tpu_torch.core.intersect import (
+    INF,
+    cross,
+    first_triangle_hit,
+    moller_trumbore,
+    normalize,
+)
 from atray_tpu_torch.dist import mesh as dmesh
 from atray_tpu_torch.kernels import wide_shade
 from atray_tpu_torch.render.rng import split
@@ -62,8 +84,6 @@ from atray_tpu_torch.render.wavefront import (
     trace_radiance,
 )
 from atray_tpu_torch.scene.data import Scene, empty_mesh, to_numpy
-
-_NEXT_ITEM = "ROADMAP.md queue 1 item 3b"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,6 +153,239 @@ def build_treelets(scene: Scene, n_parts: int) -> TreeletGeom:
         recs[i, :len(idx)] = ft[idx]
         recs[i, len(idx):, 19] = -1.0
     return TreeletGeom(recs=recs)
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeletParts:
+    """The static face partition of the differentiable backend (host
+    numpy): ``idx`` (P, Tpad) the face ids of each part, -1 pad; ``owner``
+    and ``lrow`` (T,) the owning part of each global face id and its row
+    in that part's table (two O(T) maps rather than a dense (P, T) one).
+    The record tables are rebuilt from the live scene at every render
+    (``treelet_records``), so gradients reach vertices, normals and
+    materials. The scene stays replicated on every rank."""
+
+    idx: np.ndarray
+    owner: np.ndarray
+    lrow: np.ndarray
+
+    @property
+    def num_parts(self) -> int:
+        return self.idx.shape[0]
+
+
+def build_treelet_parts(scene: Scene, n_parts: int) -> TreeletParts:
+    """The host-side spatial partition (indices only) of the
+    differentiable treelet path."""
+    _check_fid_precision(int(scene.mesh.num_faces))
+    parts = partition_faces(to_numpy(scene.mesh.vertices), to_numpy(scene.mesh.faces), n_parts)
+    t = int(scene.mesh.num_faces)
+    tpad = max(1, max(len(p) for p in parts))
+    idx = np.full((n_parts, tpad), -1, np.int32)
+    owner = np.zeros((max(1, t),), np.int32)
+    lrow = np.zeros((max(1, t),), np.int32)
+    for i, p in enumerate(parts):
+        idx[i, :len(p)] = p
+        owner[p] = i
+        lrow[p] = np.arange(len(p), dtype=np.int32)
+    return TreeletParts(idx=idx, owner=owner, lrow=lrow)
+
+
+def _pad_rows(rows: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
+    """``rows`` (Tpad, 20) with the rows where ``pad`` holds zero and
+    face id -1 (a degenerate record, which never hits)."""
+    pad_row = torch.zeros(20, dtype=rows.dtype, device=rows.device)
+    pad_row[19] = -1.0
+    return torch.where(pad[:, None], pad_row, rows)
+
+
+def _face_records(scene: Scene) -> torch.Tensor:
+    """``build_face_table`` of the live scene with the global face id in
+    column 19."""
+    ft = build_face_table(scene)
+    if ft is None:
+        raise ValueError("treelet sharding needs a non-empty mesh")
+    _check_fid_precision(ft.shape[0])
+    ids = torch.arange(ft.shape[0], dtype=ft.dtype, device=ft.device)
+    return torch.cat([ft[:, :19], ids[:, None]], dim=1)
+
+
+def _part_records(ft: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(Tpad, 20) records of one part: the face table's rows ``idx`` (-1
+    pad) by ``index_select``, whose backward is an ``index_add_``."""
+    safe = torch.clamp(idx, 0, ft.shape[0] - 1).long()
+    return _pad_rows(_rows(ft, safe), idx < 0)
+
+
+def treelet_records(scene: Scene, parts: TreeletParts) -> torch.Tensor:
+    """(P, Tpad, 20) record tables built in the graph from the scene (on
+    its device): each part's rows of the face table, the global face id in
+    column 19, pad rows zero with id -1. A differentiable function of the
+    vertices and normals. ``render_treelet`` builds only its rank's part."""
+    ft = _face_records(scene)
+    idx = torch.as_tensor(parts.idx, device=ft.device)
+    return torch.stack([_part_records(ft, idx[p]) for p in range(parts.num_parts)])
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeletShards:
+    """Geometry parameters born sharded (host numpy, stacked on a parts
+    axis): per part the vertex and normal slices its faces use, its faces
+    indexed locally. Rank r takes part r (``local``) and builds its
+    records from it alone (``shard_records``), so no rank holds another
+    part's vertices or their gradients. Vertices that faces of several
+    parts share are copied into each; their gradients arrive per copy, and
+    ``merge_vertex_grads``/``merge_normal_grads`` add them into the global
+    arrays.
+
+    ``vertices`` (P, Vpad, 3) and ``normals`` (P, Npad, 3) float32;
+    ``faces``/``fnidx`` (P, Tpad, 3) local vertex and normal indices (fnidx
+    -1: flat shading); ``matid``/``fid`` (P, Tpad) material and global face
+    ids (fid -1 pad); ``v_gid``/``n_gid`` (P, Vpad)/(P, Npad) the global id
+    of each local slot (-1 pad); ``owner``/``lrow`` (T,) as in
+    ``TreeletParts``."""
+
+    vertices: np.ndarray
+    normals: np.ndarray
+    faces: np.ndarray
+    fnidx: np.ndarray
+    matid: np.ndarray
+    fid: np.ndarray
+    v_gid: np.ndarray
+    n_gid: np.ndarray
+    owner: np.ndarray
+    lrow: np.ndarray
+
+    @property
+    def num_parts(self) -> int:
+        return self.faces.shape[0]
+
+    def local(self, rank: int, device) -> "TreeletShard":
+        """Part ``rank``'s slices and the two ownership maps on ``device``;
+        set ``requires_grad`` on its ``vertices``/``normals`` to
+        differentiate with respect to them."""
+        def put(x):
+            return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+        return TreeletShard(
+            **{k: put(getattr(self, k)[rank]) for k in
+               ("vertices", "normals", "faces", "fnidx", "matid", "fid", "v_gid", "n_gid")},
+            owner=put(self.owner), lrow=put(self.lrow), rank=rank, num_parts=self.num_parts)
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeletShard:
+    """One rank's part of a ``TreeletShards`` on its device (the fields as
+    there, without the parts axis), ``rank`` the part it is."""
+
+    vertices: torch.Tensor
+    normals: torch.Tensor
+    faces: torch.Tensor
+    fnidx: torch.Tensor
+    matid: torch.Tensor
+    fid: torch.Tensor
+    v_gid: torch.Tensor
+    n_gid: torch.Tensor
+    owner: torch.Tensor
+    lrow: torch.Tensor
+    rank: int
+    num_parts: int
+
+
+def build_treelet_shards(scene: Scene, n_parts: int) -> TreeletShards:
+    """Host build of the sharded parameters: the spatial face partition
+    (``partition_faces``), then per part the vertices and normals its faces
+    use, sliced out, and the faces indexed locally. Every table is padded
+    to the largest part."""
+    _check_fid_precision(int(scene.mesh.num_faces))
+    m = _host_scene(scene).mesh
+    v, nrm, f = m.vertices, m.normals, m.faces
+    fn, mid = m.face_normal_idx, m.material_id
+    parts = partition_faces(v, f, n_parts)
+
+    loc = []
+    for p in parts:
+        pf = f[p]
+        vu, vinv = np.unique(pf, return_inverse=True)
+        lf = vinv.reshape(pf.shape).astype(np.int32)
+        pfn = fn[p] if fn.size else np.full((len(p), 3), -1, np.int64)
+        used = pfn[pfn >= 0]
+        nu = np.unique(used) if used.size else np.zeros((0,), np.int64)
+        remap = np.full((nrm.shape[0] + 1,), -1, np.int32)
+        remap[nu] = np.arange(len(nu), dtype=np.int32)
+        lfn = np.where(pfn >= 0, remap[np.clip(pfn, 0, nrm.shape[0])], -1)
+        loc.append((p, vu, lf, nu, lfn.astype(np.int32)))
+
+    vpad = max(1, max(len(x[1]) for x in loc))
+    npad = max(1, max(len(x[3]) for x in loc))
+    tpad = max(1, max(len(x[0]) for x in loc))
+    t = int(scene.mesh.num_faces)
+    out = {"vertices": np.zeros((n_parts, vpad, 3), np.float32),
+           "normals": np.zeros((n_parts, npad, 3), np.float32),
+           "faces": np.zeros((n_parts, tpad, 3), np.int32),
+           "fnidx": np.full((n_parts, tpad, 3), -1, np.int32),
+           "matid": np.zeros((n_parts, tpad), np.int32),
+           "fid": np.full((n_parts, tpad), -1, np.int32),
+           "v_gid": np.full((n_parts, vpad), -1, np.int32),
+           "n_gid": np.full((n_parts, npad), -1, np.int32),
+           "owner": np.zeros((max(1, t),), np.int32),
+           "lrow": np.zeros((max(1, t),), np.int32)}
+    for i, (p, vu, lf, nu, lfn) in enumerate(loc):
+        k = len(p)
+        out["vertices"][i, :len(vu)] = v[vu]
+        if len(nu):
+            out["normals"][i, :len(nu)] = nrm[nu]
+        out["faces"][i, :k] = lf
+        out["fnidx"][i, :k] = lfn
+        out["matid"][i, :k] = mid[p]
+        out["fid"][i, :k] = p
+        out["v_gid"][i, :len(vu)] = vu
+        out["n_gid"][i, :len(nu)] = nu
+        out["owner"][p] = i
+        out["lrow"][p] = np.arange(k, dtype=np.int32)
+    return TreeletShards(**out)
+
+
+def shard_records(v: torch.Tensor, nrm: torch.Tensor, f: torch.Tensor, fnidx: torch.Tensor,
+                  matid: torch.Tensor, fid: torch.Tensor) -> torch.Tensor:
+    """(Tpad, 20) record table of one part from its local slices, in the
+    layout of ``build_face_table`` with the global face id in column 19:
+    the per-part analog of the face table, differentiable with respect to
+    ``v`` and ``nrm`` (gathered by ``index_select``)."""
+    f = f.long()
+    p0 = _rows(v, f[:, 0])
+    e1 = _rows(v, f[:, 1]) - p0
+    e2 = _rows(v, f[:, 2]) - p0
+    flat_n = normalize(cross(e1, e2))
+    has_smooth = (fnidx[:, 0] >= 0)[:, None]
+    ncl = torch.clamp(fnidx, 0, nrm.shape[0] - 1).long()
+    n0, n1, n2 = (torch.where(has_smooth, _rows(nrm, ncl[:, k]), flat_n) for k in range(3))
+    recs = torch.cat([p0, e1, e2, n0, n1, n2, matid.to(torch.float32)[:, None],
+                      fid.to(torch.float32)[:, None]], dim=1)
+    return _pad_rows(recs, fid < 0)
+
+
+def _merge_copies(gid, g: torch.Tensor, count: int) -> torch.Tensor:
+    """Scatter-add per-copy rows ``g`` (P, pad, 3) into a (count, 3) array
+    by their global ids ``gid`` (P, pad), -1 pad."""
+    gid = torch.as_tensor(gid, device=g.device).reshape(-1)
+    flat = g.reshape(-1, 3) * (gid >= 0).to(g.dtype)[:, None]
+    safe = torch.clamp(gid, 0, max(count - 1, 0)).long()
+    return torch.zeros((count, 3), dtype=g.dtype, device=g.device).index_add_(0, safe, flat)
+
+
+def merge_vertex_grads(shards: TreeletShards, g_vertices: torch.Tensor,
+                       num_vertices: int) -> torch.Tensor:
+    """The per-copy vertex gradients (P, Vpad, 3), gathered from the ranks
+    in rank order, added into the global (V, 3) array: the copies of a
+    boundary vertex sum, as in the replicated path's gradient."""
+    return _merge_copies(shards.v_gid, g_vertices, num_vertices)
+
+
+def merge_normal_grads(shards: TreeletShards, g_normals: torch.Tensor,
+                       num_normals: int) -> torch.Tensor:
+    """The normals' analog of ``merge_vertex_grads``."""
+    return _merge_copies(shards.n_gid, g_normals, num_normals)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,15 +520,18 @@ def _keep_int(buf: torch.Tensor, k: int, upd: torch.Tensor, x: torch.Tensor) -> 
 class _Ring:
     """One rotation a hop of a (W, R) float32 buffer: send to (rank + 1) %
     n, receive from (rank - 1) % n (ranks of the mesh's group, which is the
-    world). Under gloo with CUDA tensors the buffer is staged through pinned
-    host buffers, allocated once a ring (gloo's send/recv take host
-    tensors). ``log`` gets one dict a hop: the ring's name, the hop, rays,
-    bytes sent, and the seconds of the hop's local query with its merge
+    world); with ``reverse`` the other way, send to rank - 1 and receive
+    from rank + 1 (the transpose, which a backward runs). Under gloo with
+    CUDA tensors the buffer is staged through pinned host buffers,
+    allocated once a ring (gloo's send/recv take host tensors). ``log``
+    gets one dict a hop: the ring's name, its direction (``reverse``), the
+    hop, rays, bytes sent, and the seconds of the hop's local work
     (``kernel_s``) and of the rotation (``transfer_s``), each closed by a
     device synchronize; without a log nothing synchronizes."""
 
-    def __init__(self, mesh: dmesh.RayMesh, name: str, log: Optional[List[dict]]):
-        self.mesh, self.name, self.log = mesh, name, log
+    def __init__(self, mesh: dmesh.RayMesh, name: str, log: Optional[List[dict]],
+                 reverse: bool = False):
+        self.mesh, self.name, self.log, self.reverse = mesh, name, log, reverse
         self.stage = (mesh.group is not None and mesh.device.type == "cuda"
                       and dist.get_backend(mesh.group) == "gloo")
         self.host = None
@@ -289,7 +545,8 @@ class _Ring:
         mesh = self.mesh
         if mesh.group is None or mesh.size == 1:
             return buf
-        nxt, prv = (mesh.rank + 1) % mesh.size, (mesh.rank - 1) % mesh.size
+        step = -1 if self.reverse else 1
+        nxt, prv = (mesh.rank + step) % mesh.size, (mesh.rank - step) % mesh.size
         if self.stage:
             if self.host is None:
                 self.host = [torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
@@ -306,25 +563,39 @@ class _Ring:
 
     def run(self, buf: torch.Tensor, hop) -> torch.Tensor:
         """``mesh.size`` hops: ``hop(buf)`` updates the buffer in place,
-        then it rotates. Returns the buffer back home."""
+        then it rotates; a reverse ring rotates first, then calls ``hop``,
+        with the hops numbered down. Returns the buffer back home."""
         buf = buf.contiguous()
-        for i in range(self.mesh.size):
+        n = self.mesh.size
+        for i in range(n):
             t0 = self._now()
-            hop(buf)
-            t1 = self._now()
-            buf = self._rotate(buf)
-            t2 = self._now()
+            if self.reverse:
+                buf = self._rotate(buf)
+                t1 = self._now()
+                hop(buf)
+                t2 = self._now()
+                kernel_s, transfer_s = t2 - t1, t1 - t0
+            else:
+                hop(buf)
+                t1 = self._now()
+                buf = self._rotate(buf)
+                t2 = self._now()
+                kernel_s, transfer_s = t1 - t0, t2 - t1
             if self.log is not None:
-                self.log.append({"ring": self.name, "hop": i, "rays": buf.shape[1],
-                                 "bytes": buf.numel() * buf.element_size(),
-                                 "kernel_s": t1 - t0, "transfer_s": t2 - t1})
+                self.log.append({"ring": self.name, "reverse": self.reverse,
+                                 "hop": n - 1 - i if self.reverse else i,
+                                 "rays": buf.shape[1], "bytes": buf.numel() * buf.element_size(),
+                                 "kernel_s": kernel_s, "transfer_s": transfer_s})
         return buf
 
 
 def _ray_buffer(orig: torch.Tensor, dirn: torch.Tensor, *rows: torch.Tensor) -> torch.Tensor:
     """(6 + planes, R) float32: the rays' o and d planes, then ``rows``
-    ((R,) planes or (k, R) blocks)."""
-    return torch.cat([orig.t(), dirn.t(), *(r if r.dim() == 2 else r[None] for r in rows)]
+    ((R,) planes or (k, R) blocks), detached: the rings write their
+    buffers in place and view planes of them as int32, and which face a
+    ray hits carries no derivative."""
+    return torch.cat([orig.detach().t(), dirn.detach().t(),
+                      *(r.detach() if r.dim() == 2 else r.detach()[None] for r in rows)]
                      ).contiguous()
 
 
@@ -336,6 +607,7 @@ def ring_first_hit(recs_local: torch.Tensor, orig: torch.Tensor, dirn: torch.Ten
     12 words a ray; a strictly nearer hit replaces the carried one, so ties
     keep the earlier treelet in ring order, as in the reference. Returns
     (t, normal (R, 3), mat, hit, fid)."""
+    recs_local = recs_local.detach()
     r, dev = orig.shape[0], orig.device
     buf = _ray_buffer(orig, dirn, torch.full((r,), INF, device=dev),
                       torch.zeros((3, r), device=dev), torch.zeros(r, device=dev),
@@ -358,6 +630,7 @@ def ring_first_fid(recs_local: torch.Tensor, orig: torch.Tensor, dirn: torch.Ten
                    mesh: dmesh.RayMesh, hop_log: Optional[List[dict]] = None):
     """Global (t, fid) through ``mesh.size`` hops, carrying only (o, d, t,
     fid): the discrete ring of the reference's differentiable path."""
+    recs_local = recs_local.detach()
     r, dev = orig.shape[0], orig.device
     buf = _ray_buffer(orig, dirn, torch.full((r,), INF, device=dev),
                       _bits(torch.full((r,), -1, dtype=torch.int32, device=dev)))
@@ -377,6 +650,7 @@ def ring_occlusion_t(recs_local: torch.Tensor, orig: torch.Tensor, dirn: torch.T
     """Triangle-class nearest t of the shadow rays through ``mesh.size``
     hops (o, d, t: 7 words a ray): the ``occl_override`` of the
     brute-force backend."""
+    recs_local = recs_local.detach()
     r, dev = orig.shape[0], orig.device
     buf = _ray_buffer(orig, dirn, torch.full((r,), INF, device=dev))
 
@@ -427,6 +701,107 @@ def ring_occlusion_t_accel(acc: ShadedWideBVH, orig: torch.Tensor, dirn: torch.T
     return _Ring(mesh, "occlusion_accel", hop_log).run(buf, hop)[7].clone()
 
 
+class _RowPickup(torch.autograd.Function):
+    """``diff_row_pickup``'s ring with its transpose as the backward."""
+
+    @staticmethod
+    def forward(ctx, recs_local, owner, lrow, fid, mesh, hop_log):
+        r, tpad, t = fid.shape[0], recs_local.shape[0], owner.shape[0]
+        saved = []
+
+        def hop(b):
+            f = _ints(b[0])
+            fc = torch.clamp(f, 0, t - 1).long()
+            own = (f >= 0) & (torch.index_select(owner, 0, fc) == mesh.rank)
+            rows = torch.where(own, torch.index_select(lrow, 0, fc), -1).to(torch.int32)
+            saved.append(rows)
+            mine = _rows(recs_local, torch.clamp(rows, 0, tpad - 1).long())
+            b[1:] = torch.where(own[None], mine.t(), b[1:])
+
+        buf = torch.cat([_bits(fid)[None],
+                         torch.zeros((20, r), dtype=recs_local.dtype, device=fid.device)])
+        buf = _Ring(mesh, "pickup", hop_log).run(buf, hop)
+        ctx.mesh, ctx.hop_log, ctx.tpad = mesh, hop_log, tpad
+        ctx.save_for_backward(*saved)
+        return buf[1:].t().contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = list(ctx.saved_tensors)
+        d_recs = torch.zeros((ctx.tpad, 20), dtype=grad.dtype, device=grad.device)
+
+        def hop(g):
+            rows = saved.pop()
+            own = rows >= 0
+            d_recs.index_add_(0, torch.clamp(rows, 0, ctx.tpad - 1).long(),
+                              torch.where(own[None], g, 0.0).t())
+            g.masked_fill_(own[None], 0.0)
+
+        _Ring(ctx.mesh, "pickup", ctx.hop_log, reverse=True).run(
+            torch.clone(grad.t(), memory_format=torch.contiguous_format), hop)
+        return d_recs, None, None, None, None, None
+
+
+def diff_row_pickup(recs_local: torch.Tensor, owner: torch.Tensor, lrow: torch.Tensor,
+                    fid: torch.Tensor, mesh: dmesh.RayMesh,
+                    hop_log: Optional[List[dict]] = None) -> torch.Tensor:
+    """Differentiable gather of each home ray's winning record row (R, 20)
+    from the rank that owns its face: (fid, row), 21 words a ray, ride the
+    ring for ``mesh.size`` hops, and at each hop the resident rank fills
+    the rows it owns (``owner[f] == rank``, local row ``lrow[f]`` of its
+    ``recs_local`` (Tpad, 20)). Rays with fid < 0 keep a zero row.
+
+    The backward is the transpose: the row cotangents, 20 words a ray, ride
+    the ring the other way (rank - 1), hops in reverse, and at each hop the
+    lanes the rank filled (saved by the forward, one int32 row index a lane
+    and hop) are added into its records' gradient by ``index_add_`` and
+    zeroed in the carried buffer. It walks no geometry. Every rank must
+    call it, and run its backward, the same number of times."""
+    return _RowPickup.apply(recs_local, owner, lrow, fid.detach().to(torch.int32), mesh, hop_log)
+
+
+def _diff_override(recs: torch.Tensor, owner: torch.Tensor, lrow: torch.Tensor,
+                   mesh: dmesh.RayMesh, hop_log: Optional[List[dict]]):
+    """The differentiable backends' ``hit_override``: which face wins comes
+    from the detached ``ring_first_fid``; t, the normal and the material
+    are replayed from the winning row (``diff_row_pickup``) on the live
+    rays, so gradients reach the records and the ray origins. A lane whose
+    replay misses (a grazing hit decided the other way) is demoted: an INF
+    hit would poison the backward."""
+
+    def override(o, d, alive):
+        fid = ring_first_fid(recs, o, d, mesh, hop_log)[1]
+        row = diff_row_pickup(recs, owner, lrow, fid, mesh, hop_log)
+        tt, u, v, _ = moller_trumbore(o, d, row[:, 0:3], row[:, 3:6], row[:, 6:9])
+        w0 = (1.0 - u - v)[:, None]
+        nrm = normalize(w0 * row[:, 9:12] + u[:, None] * row[:, 12:15]
+                        + v[:, None] * row[:, 15:18])
+        mat = row[:, 18].detach().to(torch.int32)
+        hit = (fid >= 0) & (tt < 1.0e30)
+        return (torch.where(hit, tt, INF), torch.where(hit[:, None], nrm, 0.0),
+                torch.where(hit, mat, 0), hit)
+
+    return override
+
+
+def _diff_tables(scene: Scene, treelets, mesh: dmesh.RayMesh):
+    """(this rank's records (Tpad, 20), owner, lrow) of a differentiable
+    backend on the mesh's device: a ``TreeletParts`` part's rows of the
+    live scene's face table, or a ``TreeletShards``'/``TreeletShard``'s
+    records from the rank's own slices."""
+    dev = mesh.device
+    if isinstance(treelets, TreeletParts):
+        ft = _face_records(scene.to(dev))
+        idx = torch.as_tensor(treelets.idx[mesh.rank], device=dev)
+        return (_part_records(ft, idx), torch.as_tensor(treelets.owner, device=dev),
+                torch.as_tensor(treelets.lrow, device=dev))
+    sh = treelets.local(mesh.rank, dev) if isinstance(treelets, TreeletShards) else treelets
+    if sh.rank != mesh.rank:
+        raise ValueError(f"part {sh.rank} of the treelet shards given to rank {mesh.rank}")
+    return shard_records(sh.vertices, sh.normals, sh.faces, sh.fnidx, sh.matid, sh.fid), \
+        sh.owner, sh.lrow
+
+
 # ---------------------------------------------------------------------------
 # The render
 # ---------------------------------------------------------------------------
@@ -435,7 +810,7 @@ def ring_occlusion_t_accel(acc: ShadedWideBVH, orig: torch.Tensor, dirn: torch.T
 def render_treelet(scene: Scene, camera: Camera, settings: RenderSettings, key,
                    mesh: dmesh.RayMesh, treelets=None, axis_name: str = "rays",
                    return_stats: bool = False, hop_log: Optional[List[dict]] = None):
-    """Geometry-sharded forward render -> (H, W, 3) film on every rank.
+    """Geometry-sharded render -> (H, W, 3) film on every rank.
 
     Mirrors ``wavefront.render`` (tile-ordered rays padded to a multiple of
     the ranks, each rank tracing its contiguous slice, spp average, clamp)
@@ -453,17 +828,23 @@ def render_treelet(scene: Scene, camera: Camera, settings: RenderSettings, key,
     ``treelets``: a ``TreeletAccels`` (``build_treelet_accels``) runs each
     hop through the ``wide_shade`` kernel on the resident part; a
     ``TreeletGeom`` or None (``build_treelets``) brute-forces the part's
-    records. The differentiable backends raise ``NotImplementedError``
-    (``ROADMAP.md`` queue 1 item 3b). ``hop_log`` (a list) gets every hop's
-    rays, bytes and seconds (``_Ring``). With ``return_stats`` also returns
-    ``{"rays_cast", "rays_cast_per_shard"}``."""
+    records; a ``TreeletParts`` (``build_treelet_parts``) builds this
+    rank's records from the live scene and is differentiable with respect
+    to its leaves; a ``TreeletShards`` (``build_treelet_shards``, the rank
+    takes its part) or this rank's ``TreeletShard`` builds them from the
+    part's own slices, differentiable with respect to the shard's vertices
+    and normals. The film's gather hands each rank back its own rays'
+    cotangent: sum the replicated leaves' gradients over the ranks
+    (``dist.train.reduce_grads``); a shard's leaves hold their whole
+    gradient. ``hop_log`` (a list) gets every hop's rays, bytes and seconds
+    (``_Ring``), the backward's pickup hops too. With ``return_stats`` also
+    returns ``{"rays_cast", "rays_cast_per_shard"}``."""
     n_dev = mesh.size
     if treelets is None:
         treelets = build_treelets(scene, n_dev)
-    if not isinstance(treelets, (TreeletGeom, TreeletAccels)):
-        raise NotImplementedError(
-            f"the {type(treelets).__name__} treelet backend (the differentiable ones, "
-            f"TreeletParts and TreeletShards) is {_NEXT_ITEM}")
+    if not isinstance(treelets, (TreeletGeom, TreeletAccels, TreeletParts, TreeletShards,
+                                 TreeletShard)):
+        raise TypeError(f"unknown treelet backend {type(treelets).__name__}")
     if treelets.num_parts != n_dev:
         raise ValueError(f"treelets built for {treelets.num_parts} parts, mesh has {n_dev}")
     dmesh.check_axis(mesh, axis_name)
@@ -494,10 +875,14 @@ def render_treelet(scene: Scene, camera: Camera, settings: RenderSettings, key,
         def occl(o, d, live):
             return ring_occlusion_t_accel(acc, o, d, live, mesh, hop_log)
     else:
-        recs = treelets.local(mesh.rank, dev)
+        if isinstance(treelets, TreeletGeom):
+            recs = treelets.local(mesh.rank, dev)
 
-        def override(o, d, alive):
-            return ring_first_hit(recs, o, d, mesh, hop_log)[:4]
+            def override(o, d, alive):
+                return ring_first_hit(recs, o, d, mesh, hop_log)[:4]
+        else:
+            recs, owner, lrow = _diff_tables(scene, treelets, mesh)
+            override = _diff_override(recs, owner, lrow, mesh, hop_log)
 
         def occl(o, d, live):
             return ring_occlusion_t(recs, o, d, mesh, hop_log)
@@ -506,7 +891,7 @@ def render_treelet(scene: Scene, camera: Camera, settings: RenderSettings, key,
         lean, orig[part], dirn[part], settings.bounce_limit, key=bounce_key,
         sort_rays=settings.sort_bounces, nee=settings.nee, return_stats=True,
         ray_ids=ray_ids[part], hit_override=override, occl_override=occl)
-    color = dmesh.gather_rows(color, mesh)[:n]
+    color = dmesh.gather_rows_grad(color, mesh)[:n]
     rc_shards = dmesh.gather_rows(stats["rays_cast"].reshape(1), mesh)
     color = from_tile_order(color, w, h, spp)
     film = clip01(color.reshape(spp, h, w, 3).mean(dim=0))

@@ -484,12 +484,14 @@ def _shade_consts(scene, _face_table, ox, oy, oz, dx, dy, dz, t, nx, ny, nz, hit
 
 def _override_hit(hit_override, st):
     """The triangle-class hit of ``hit_override(o (R, 3), d (R, 3), alive)``
-    on the bounce's detached rays, as (hit planes, the shading that reads
+    on the bounce's live rays, as (hit planes, the shading that reads
     them): the fused form ``(t, normal (R, 3), emission (R, 3), albedo
     (R, 3), scatter, hit)`` or the id form ``(t, normal, material id,
-    hit)``."""
-    o3 = torch.stack([st.ox, st.oy, st.oz], dim=1).detach()
-    d3 = torch.stack([st.dx, st.dy, st.dz], dim=1).detach()
+    hit)``. An override that decides hits alone detaches the rays itself;
+    one that replays the hit from them passes their gradient on, as in
+    the reference."""
+    o3 = torch.stack([st.ox, st.oy, st.oz], dim=1)
+    d3 = torch.stack([st.dx, st.dy, st.dz], dim=1)
     out = hit_override(o3, d3, st.alive)
     if len(out) == 6:
         t, n, em, al, sc, hit = out
@@ -1101,8 +1103,10 @@ def trace_radiance(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor,
     nearest hit (the accel is then not walked for hits; spheres and planes
     are still merged here). It returns ``(t, normal (R, 3), material id,
     hit)``, or the fused form ``(t, normal, emission (R, 3), albedo (R, 3),
-    scatter, hit)``; its ray inputs are detached (which face a ray hits
-    carries no derivative), and its outputs are taken as they come. With
+    scatter, hit)``; its ray inputs are the live rays (an override that
+    only decides which face a ray hits detaches them, which carries no
+    derivative; one that replays the hit from them passes their gradient
+    on), and its outputs are taken as they come. With
     NEE and a light it needs ``occl_override(o, d, live) -> t``, the
     shadow rays' triangle-class nearest t, and raises
     ``NotImplementedError`` without one. A textured scene under an

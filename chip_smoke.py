@@ -275,6 +275,32 @@ Phases, one printed line each (a failing phase raises, exit code != 0):
     (d) a one-rank NCCL group in this process: the slice through
     ``render(mesh=)`` equal to the local film, ``assemble_film`` and an
     ``all_reduce``.
+19. the sharded training path: two ranks again (``chip_smoke.py --rank R
+    ... --phase 19``), gloo on the one card. (a) the trainer of phase 9 at
+    16 views x 128x128 (262,144 rays, 131,072 a rank) through
+    ``make_train_step(mesh=)``: step 1's loss and gradients by
+    ``make_loss_and_grad(mesh=)`` held to this process's one-rank ones
+    (``_hold_grads``), then with the counts set to 0, 4 steps on the
+    ``make_accel`` ``WideBVH`` and 2 on the ``ShadedWideBVH``, both
+    refit: ``wide_exact`` and ``wide_shade`` launched, no plain version,
+    the loss falling, the parameters bit-equal on both ranks after every
+    step, each step's seconds and its ``all_reduce``'s seconds and bytes,
+    each rank's first captured ``wide_exact`` and ``wide_shade`` launches
+    bit for bit against the plain versions; (b) ``TreeletParts`` and (c)
+    ``TreeletShards`` of the same dragon in 2 parts, 16 views x 64x64 x 3
+    bounces (the third so that the compaction runs), forward and backward
+    with the counts set to 0: ``lane_take`` and ``lane_scatter`` launched,
+    no plain version, the backward's hops only the reverse pickup ring,
+    every ring's hops, bytes and seconds; the films against the
+    replicated brute-force films (``TIE_PIXELS``), the gradients (summed
+    by ``reduce_grads``, or gathered and merged) against the replicated
+    ones (``_hold_grads``), each rank's part's bytes on the card, and each
+    rank's first ``lane_take`` and ``lane_scatter`` launches bit for bit
+    against the plain versions; (d) ``torchrun --standalone
+    --nproc-per-node 2 -m atray_tpu_torch.examples.inverse_render`` at 16
+    views x 64x64 on the 139k dragon, its loss falling; (e) in this
+    process, a one-rank NCCL group: one ``make_train_step(mesh=)`` step
+    equal to the step without a mesh bit for bit.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Every profile (phases 4, 8, 9, 11, 12) prints device time by kernel
@@ -1062,8 +1088,9 @@ def _trainer_scene():
 TRAIN_VIEWS, TRAIN_RES = 16, 64
 
 
-def _trainer_rays(dev):
-    """The trainer's primaries: 16 orbit views x 64x64 px x 1 spp, view by view."""
+def _trainer_rays(dev, res=TRAIN_RES):
+    """The trainer's primaries: 16 orbit views x res x res px (64: phase
+    9's) x 1 spp, view by view."""
     import numpy as np
     import torch
 
@@ -1074,7 +1101,7 @@ def _trainer_rays(dev):
         ang = 2 * np.pi * v / TRAIN_VIEWS
         cam = look_at_camera((2.5 * np.sin(ang), 0.8, -4 + 2.5 * np.cos(ang)), (0, 0, -4),
                              h_fov=0.8, aspect=1.0)
-        o, d = camera_rays(cam, TRAIN_RES, TRAIN_RES, 1, device=dev)
+        o, d = camera_rays(cam, res, res, 1, device=dev)
         origs.append(o)
         dirns.append(d)
     return torch.cat(origs), torch.cat(dirns)
@@ -1090,13 +1117,13 @@ def _trainer_start(vertices):
     return vertices + torch.from_numpy(noise.astype(np.float32)).to(vertices.device)
 
 
-def _trainer(scene_host, accels, orig, dirn, dev):
+def _trainer(scene_host, accels, orig, dirn, dev, mesh=None):
     """Phase 9's trainer over the primaries (``orig``, ``dirn``): the target
     traced at the true parameters on the first of ``accels`` (name ->
     accel), albedo (x 0.4 + 0.2) and vertices (``_trainer_start``)
     corrupted, one Adam, and a ``make_train_step`` (2 bounces,
-    ``refit=True``) for each accel. Returns (scene, true params, params,
-    target, steps by name)."""
+    ``refit=True``, over ``mesh`` where given) for each accel. Returns
+    (scene, true params, params, target, steps by name)."""
     import dataclasses
 
     import torch
@@ -1114,7 +1141,8 @@ def _trainer(scene_host, accels, orig, dirn, dev):
                             vertices=_trainer_start(true.vertices).requires_grad_())
     opt = torch.optim.Adam([{"params": [p.albedo], "lr": 3e-2},
                             {"params": [p.vertices], "lr": 5e-4}])
-    steps = {name: make_train_step(scene_host, 2, opt, accel=acc, refit=True, device=dev)
+    steps = {name: make_train_step(scene_host, 2, opt, accel=acc, refit=True, device=dev,
+                                   mesh=mesh)
              for name, acc in accels.items()}
     return scene, true, p, target, steps
 
@@ -3986,10 +4014,11 @@ def phase_sharded_cli(mesh, out, gpu):
 
 
 def rank_main(argv) -> int:
-    """One rank of phase 18: ``chip_smoke.py --rank R --world N --port P
-    --out DIR``, as ``phase_sharded`` starts it. It joins the gloo group
-    over 127.0.0.1 on cuda:0, runs 18a-18c and writes its numbers to
-    DIR/rank<R>.json."""
+    """One rank of phase 18 or 19: ``chip_smoke.py --rank R --world N --port
+    P --out DIR [--phase 19]``, as ``phase_sharded`` and
+    ``phase_sharded_training`` start it. It joins the gloo group over
+    127.0.0.1 on cuda:0, runs 18a-18c (or 19a-19c) and writes its numbers
+    to DIR/rank<R>.json (DIR/rank<R>_19.json)."""
     import argparse
 
     import torch
@@ -3998,6 +4027,7 @@ def rank_main(argv) -> int:
     for flag in ("--rank", "--world", "--port"):
         p.add_argument(flag, type=int, required=True)
     p.add_argument("--out", required=True)
+    p.add_argument("--phase", choices=("18", "19"), default="18")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke rank: no CUDA device", file=sys.stderr)
@@ -4015,16 +4045,23 @@ def rank_main(argv) -> int:
     try:
         mesh = make_device_mesh(a.world, device="cuda:0")
         gpu = _gpu_line()
-        t0 = time.perf_counter()
-        scene_host = _slice_scene()
-        accel_host = build_shaded_accel(scene_host, KDTreeConfig(leaf_size=16))
-        print(f"phase 18 rank {a.rank}: host build of the slice {time.perf_counter() - t0:.2f} s")
         res = {}
-        res["18a"], local = phase_sharded_slice(scene_host, accel_host, mesh, gpu)
-        res["18b"] = phase_treelet_slice(scene_host, mesh, local, gpu)
-        del local
-        res["18c"] = phase_sharded_cli(mesh, a.out, gpu)
-        with open(os.path.join(a.out, f"rank{a.rank}.json"), "w") as fh:
+        if a.phase == "19":
+            res["19a"] = phase_sharded_trainer(mesh, a.out, gpu)
+            res.update(phase_treelet_training(mesh, a.out, gpu))
+            name = f"rank{a.rank}_19.json"
+        else:
+            t0 = time.perf_counter()
+            scene_host = _slice_scene()
+            accel_host = build_shaded_accel(scene_host, KDTreeConfig(leaf_size=16))
+            print(f"phase 18 rank {a.rank}: host build of the slice "
+                  f"{time.perf_counter() - t0:.2f} s")
+            res["18a"], local = phase_sharded_slice(scene_host, accel_host, mesh, gpu)
+            res["18b"] = phase_treelet_slice(scene_host, mesh, local, gpu)
+            del local
+            res["18c"] = phase_sharded_cli(mesh, a.out, gpu)
+            name = f"rank{a.rank}.json"
+        with open(os.path.join(a.out, name), "w") as fh:
             json.dump(res, fh)
     finally:
         dist.destroy_process_group()
@@ -4163,6 +4200,523 @@ def phase_sharded(scene, accel, dev, gpu):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the sharded training half, two ranks on one card
+# ---------------------------------------------------------------------------
+
+SHARD_TRAIN_RES = 128         # 19a: 16 views x 128x128 = 262,144 rays, 131,072 a rank
+TREELET_RES = 64              # 19b-c: 16 views x 64x64 = 65,536 rays, 32,768 a rank
+# 19b-c trace 3 bounces: the port compacts (lane_take, lane_scatter in the
+# backward) after the first diffuse bounce only when another one follows
+TREELET_BOUNCES = 3
+EXAMPLE_ARGS = ["--views", "16", "--tris", "139000", "--res", "64", "--steps", "20"]
+EXAMPLE_TIMEOUT_S = 300
+
+
+@contextlib.contextmanager
+def _spy_first(mod, name, got):
+    """While the block runs, keep ``mod.name``'s first call's arguments
+    (its accel as it is, its tensors cloned) under ``got[name]``."""
+    import torch
+
+    real = getattr(mod, name)
+
+    def spy(*args, **kw):
+        got.setdefault(name, [a.clone() if isinstance(a, torch.Tensor) else a for a in args])
+        return real(*args, **kw)
+
+    setattr(mod, name, spy)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+@contextlib.contextmanager
+def _timed_reduces(into, dev):
+    """While the block runs, time every ``torch.distributed.all_reduce`` (a
+    device synchronize on each side) and append (seconds, bytes)."""
+    import torch
+    import torch.distributed as dist
+
+    real = dist.all_reduce
+
+    def spy(x, *args, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = real(x, *args, **kw)
+        torch.cuda.synchronize(dev)
+        into.append((time.perf_counter() - t0, x.nbytes))
+        return out
+
+    dist.all_reduce = spy
+    try:
+        yield
+    finally:
+        dist.all_reduce = real
+
+
+def _exact_bits(accel, o, d, label, gpu, phase):
+    """``_exact_compare`` (phase 7's rules, times, bound), then every ray's
+    t, u, v and id against the plain version bit for bit."""
+    import torch
+
+    from atray_tpu_torch.kernels.wide_exact import wide_exact_first_hit, wide_exact_ref
+
+    out = _exact_compare(accel, o, d, label, gpu, phase=phase)
+    got, want = wide_exact_first_hit(accel, o, d), wide_exact_ref(accel, o, d)
+    diff = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum()) for a, b in zip(got, want))
+    if diff:
+        raise AssertionError(f"wide_exact {label}: {diff} words differ from the plain version")
+    print(f"phase {phase} wide_exact {label}: t, u, v and id bit-equal to the plain version on "
+          f"all {o.shape[0]} rays [{gpu}]")
+    return out
+
+
+def _digest_params(p) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in (p.albedo, p.vertices):
+        h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def phase_sharded_trainer(mesh, out, gpu):
+    """19a (each rank): the trainer of phase 9 at 16 views x 128x128 with
+    ``make_train_step(mesh=)``: step 1's loss and gradients by
+    ``make_loss_and_grad(mesh=)`` (rank 0 saves them for the parent), then
+    the counts set to 0 and 4 steps on the ``make_accel`` ``WideBVH`` and 2
+    on the ``ShadedWideBVH``, both refit, each step's seconds and its
+    ``all_reduce``'s seconds and bytes, the parameters' digest after every
+    step; the first ``wide_exact`` and ``wide_shade`` launches of the
+    steps, captured, held bit for bit against the plain versions, the
+    ranks in turn."""
+    import numpy as np
+    import torch
+
+    from atray_tpu_torch.accel.shaded import build_shaded_accel
+    from atray_tpu_torch.accel.wide import make_accel
+    from atray_tpu_torch.config import KDTreeConfig
+    from atray_tpu_torch.dist.train import make_loss_and_grad
+    from atray_tpu_torch.render import wavefront
+    from atray_tpu_torch.render.rng import fold_in, prng_key
+
+    dev, rank = mesh.device, mesh.rank
+    t0 = time.perf_counter()
+    scene_host = _trainer_scene()
+    wide_host = make_accel(scene_host.mesh.vertices, scene_host.mesh.faces,
+                           KDTreeConfig(leaf_size=16))
+    shaded = build_shaded_accel(scene_host, KDTreeConfig(leaf_size=16))
+    build_s = time.perf_counter() - t0
+    orig, dirn = _trainer_rays(dev, SHARD_TRAIN_RES)
+    scene, _, p, target, steps = _trainer(
+        scene_host, {"make_accel": wide_host, "shaded accel": shaded}, orig, dirn, dev, mesh)
+    loss0, g0 = make_loss_and_grad(scene_host, 2, accel=wide_host, refit=True, device=dev,
+                                   mesh=mesh)(p, orig, dirn, target, fold_in(prng_key(0), 0))
+    if rank == 0:
+        np.savez(os.path.join(out, "19a_step1.npz"), loss=loss0.cpu().numpy(),
+                 albedo=g0.albedo.cpu().numpy(), vertices=g0.vertices.cpu().numpy())
+    plan = ["make_accel"] * 4 + ["shaded accel"] * 2
+    got, reduces, losses, secs, digests = {}, [], [], [], []
+    _reset_counts()
+    with _timed_reduces(reduces, dev):
+        for s, name in enumerate(plan):
+            spy = (_spy_first(wavefront, "wide_exact_first_hit", got) if name == "make_accel"
+                   else _spy_first(wavefront, "wide_shade_planes", got))
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with spy:
+                losses.append(float(steps[name](p, orig, dirn, target, fold_in(prng_key(0), s))))
+            secs.append(time.perf_counter() - t0)
+            digests.append(_digest_params(p))
+    counts = _read_counts()
+    if counts["wide_exact"][0] < 4 * 2 or counts["wide_shade"][0] < 2 * 2:
+        raise AssertionError(f"19a rank {rank}: launches {counts}")
+    _no_plain(counts, f"19a rank {rank}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"19a rank {rank}: the loss did not fall: {losses}")
+    print(f"phase 19a rank {rank} of {mesh.size} (gloo, {dev}): make_train_step(mesh=) on "
+          f"dragon_proxy(139_000), 16 views x {SHARD_TRAIN_RES}x{SHARD_TRAIN_RES} = "
+          f"{orig.shape[0]} rays ({orig.shape[0] // mesh.size} a rank), 2 bounces, refit=True "
+          f"(host builds {build_s:.2f} s); losses {', '.join(f'{x:.6g}' for x in losses)} "
+          f"[{gpu}]")
+    print(f"phase 19a rank {rank} step seconds: make_accel "
+          f"{', '.join(f'{x:.4f}' for x in secs[:4])}; shaded accel "
+          f"{', '.join(f'{x:.4f}' for x in secs[4:])}; all_reduce a step "
+          f"{', '.join(f'{r[0]:.4f}' for r in reduces)} s of {reduces[0][1]} B; launches "
+          f"wide_exact {counts['wide_exact'][0]}, wide_shade {counts['wide_shade'][0]}, plain "
+          f"calls 0; parameter digests {' '.join(digests)} [{gpu}]")
+    res = {"losses": losses, "secs": secs, "reduces": reduces, "digests": digests,
+           "launches": {k: counts[k][0] for k in ("wide_exact", "wide_shade")},
+           "loss0": float(loss0)}
+
+    def hold():
+        acc, o, d = got["wide_exact_first_hit"]
+        ex = _exact_bits(acc, o, d, f"(phase 19a) rank {rank} first make_accel step's camera "
+                         "bounce", gpu, "19a")
+        args = got["wide_shade_planes"]
+        ws = _compare_hits(args[0], args[1:7], args[7],
+                           f"(phase 19a) rank {rank} first shaded step's camera bounce", gpu,
+                           exact=True)
+        return {"wide_exact": {"err": ex[0], "ms": ex[1], "plain_ms": ex[2], "bound": ex[3],
+                               "rays": int(o.shape[0])},
+                "wide_shade": {"err": ws[0], "ms": ws[1], "plain_ms": ws[2], "bound": ws[4],
+                               "rays": int(args[7].shape[0]), "live_rays": int(args[7].sum())}}
+
+    res.update(_in_turns(mesh, hold))
+    del got
+    return res
+
+
+def _treelet_views():
+    """19b-c's 16 orbit cameras (phase 9's views) and their settings:
+    ``TREELET_RES`` square, 1 spp, ``TREELET_BOUNCES``, the defaults (sort
+    and lane pack on)."""
+    import numpy as np
+
+    from atray_tpu_torch.config import RenderSettings
+    from atray_tpu_torch.core.camera import look_at_camera
+
+    cams = []
+    for v in range(TRAIN_VIEWS):
+        ang = 2 * np.pi * v / TRAIN_VIEWS
+        cams.append(look_at_camera((2.5 * np.sin(ang), 0.8, -4 + 2.5 * np.cos(ang)),
+                                   (0, 0, -4), h_fov=0.8, aspect=1.0))
+    return cams, RenderSettings(resolution=(TREELET_RES, TREELET_RES), samples_per_pixel=1,
+                                bounce_limit=TREELET_BOUNCES)
+
+
+def _leaf_grads(loss, leaves):
+    import torch
+
+    g = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(x) if y is None else y for x, y in zip(leaves, g)]
+
+
+def _hop_lines(label, rank, hops, n_fwd, gpu):
+    """One line a ring and direction: hops, bytes a hop, the local work's
+    and the transfers' seconds and rate. Returns the same numbers."""
+    kinds = {}
+    for i, h in enumerate(hops):
+        k = kinds.setdefault(("backward " if i >= n_fwd else "forward ") + h["ring"],
+                             {"hops": 0, "bytes": 0, "kernel_s": 0.0, "transfer_s": 0.0})
+        k["hops"] += 1
+        k["bytes"] += h["bytes"]
+        k["kernel_s"] += h["kernel_s"]
+        k["transfer_s"] += h["transfer_s"]
+    for key, k in kinds.items():
+        print(f"phase {label} rank {rank} {key} hops: {k['hops']}, {k['bytes']} B in all "
+              f"({k['bytes'] // k['hops']} B a hop), local work {k['kernel_s']:.4f} s, transfer "
+              f"{k['transfer_s']:.4f} s ({k['bytes'] / max(k['transfer_s'], 1e-9) / 1e9:.3f} "
+              f"GB/s) [{gpu}]")
+    return kinds
+
+
+def phase_treelet_training(mesh, out, gpu):
+    """19b and 19c (each rank): the differentiable treelet renders of the
+    trainer's dragon in 2 parts, over 16 views, forward and backward with
+    the counts set to 0 and the hop log on: ``TreeletParts`` (all five
+    leaves, summed by ``reduce_grads``) and ``TreeletShards`` (this rank's
+    vertex and normal slices, gathered and merged on rank 0); the films and
+    gradients go to the parent; the first ``lane_take`` and ``lane_scatter``
+    launches held bit for bit against the plain versions, the ranks in
+    turn."""
+    import numpy as np
+    import torch
+
+    from atray_tpu_torch.dist.mesh import gather_rows
+    from atray_tpu_torch.dist.train import reduce_grads
+    from atray_tpu_torch.dist.treelet import (
+        build_treelet_parts,
+        build_treelet_shards,
+        merge_normal_grads,
+        merge_vertex_grads,
+        render_treelet,
+    )
+    from atray_tpu_torch.kernels import lane_pack
+    from atray_tpu_torch.render import wavefront
+    from atray_tpu_torch.render.rng import prng_key
+    from atray_tpu_torch.scene.data import SceneParams
+
+    dev, rank = mesh.device, mesh.rank
+    scene_host = _trainer_scene()
+    scene = scene_host.to(dev)
+    cams, settings = _treelet_views()
+    res = {}
+    for label, name in (("19b", "TreeletParts"), ("19c", "TreeletShards")):
+        t0 = time.perf_counter()
+        if name == "TreeletParts":
+            tl = build_treelet_parts(scene_host, mesh.size)
+            p = SceneParams(*(x.clone().requires_grad_() for x in scene.params().leaves()))
+            traced, leaves = scene.with_params(p), list(p.leaves())
+            part_b = tl.idx[rank].nbytes + tl.owner.nbytes + tl.lrow.nbytes
+        else:
+            host = build_treelet_shards(scene_host, mesh.size)
+            tl = host.local(rank, dev)
+            leaves = [tl.vertices.requires_grad_(), tl.normals.requires_grad_()]
+            traced = scene
+            part_b = sum(getattr(tl, f.name).nbytes for f in dataclasses.fields(tl)
+                         if isinstance(getattr(tl, f.name), torch.Tensor))
+        build_s = time.perf_counter() - t0
+        got, hops = {}, []
+        torch.cuda.synchronize(dev)
+        _reset_counts()
+        t0 = time.perf_counter()
+        with _spy_first(lane_pack, "lane_scatter", got), _first_launches(got):
+            films = [render_treelet(traced, cam, settings, prng_key(v), mesh, treelets=tl,
+                                    hop_log=hops) for v, cam in enumerate(cams)]
+            torch.cuda.synchronize(dev)
+            fwd_s = time.perf_counter() - t0
+            n_fwd = len(hops)
+            g = _leaf_grads(sum(f.sum() for f in films), leaves)
+            torch.cuda.synchronize(dev)
+        bwd_s = time.perf_counter() - t0 - fwd_s
+        counts = _read_counts()
+        for k in ("lane_take", "lane_scatter"):
+            if counts[k][0] <= 0:
+                raise AssertionError(f"{label} rank {rank}: {k} did not launch: {counts}")
+        _no_plain(counts, f"{label} rank {rank}")
+        if any(h["ring"] != "pickup" or not h["reverse"] for h in hops[n_fwd:]) or \
+                len(hops) == n_fwd or any(h["reverse"] for h in hops[:n_fwd]):
+            raise AssertionError(f"{label} rank {rank}: the backward ran hops other than the "
+                                 f"reverse pickup ring: {[h['ring'] for h in hops[n_fwd:]]}")
+        t1 = time.perf_counter()
+        if name == "TreeletParts":
+            g = reduce_grads(g, mesh)
+            saved = {f"g{i}": x.cpu().numpy() for i, x in enumerate(g)}
+        else:
+            gv, gn = (gather_rows(x[None], mesh) for x in g)
+            saved = {"g0": merge_vertex_grads(host, gv, int(scene_host.mesh.num_vertices)
+                                              ).cpu().numpy(),
+                     "g1": merge_normal_grads(host, gn, scene_host.mesh.normals.shape[0]
+                                              ).cpu().numpy()}
+        red_s = time.perf_counter() - t1
+        films = torch.stack([f.detach() for f in films]).cpu().numpy()
+        if rank == 0:
+            np.savez(os.path.join(out, f"{label}.npz"), films=films, **saved)
+        print(f"phase {label} rank {rank}: {name} of dragon_proxy(139_000) in {mesh.size} parts "
+              f"(host build {build_s:.4f} s; this rank's tables on the card {part_b} B), 16 "
+              f"views x {TREELET_RES}x{TREELET_RES} x {TREELET_BOUNCES} bounces "
+              f"({len(cams) * TREELET_RES ** 2 // mesh.size} rays a rank): forward {fwd_s:.4f} s, "
+              f"backward {bwd_s:.4f} s, gradient reduction {red_s:.4f} s; launches lane_take "
+              f"{counts['lane_take'][0]}, lane_scatter {counts['lane_scatter'][0]}, plain calls "
+              f"0 [{gpu}]")
+        kinds = _hop_lines(label, rank, hops, n_fwd, gpu)
+        for h in hops[:4] + hops[n_fwd:n_fwd + 2]:
+            print(f"phase {label} rank {rank} {'backward' if h['reverse'] else 'forward'} "
+                  f"{h['ring']} hop {h['hop']}: {h['rays']} rays, {h['bytes']} B, local work "
+                  f"{h['kernel_s']:.5f} s, transfer {h['transfer_s']:.5f} s")
+
+        def hold():
+            take = _hold_take(*got["lane_take"], f"rank {rank} {name} state pack", gpu, label)
+            cols, dst = got["lane_scatter"]
+            sc = _scatter_case(cols, dst, f"(phase {label}) rank {rank} {name} backward", gpu)
+            return {"lane_take": take, "lane_scatter": {
+                "ms": sc[0], "plain_ms": sc[1], "library_ms": sc[2], "bound": sc[3],
+                "err": sc[4], "rays": int(dst.shape[0])}}
+
+        res[label] = {"fwd_s": fwd_s, "bwd_s": bwd_s, "red_s": red_s, "part_bytes": part_b,
+                      "hops": kinds, "launches": {k: counts[k][0] for k in
+                                                  ("lane_take", "lane_scatter")},
+                      **_in_turns(mesh, hold)}
+        del got, films, g, leaves, traced
+    return res
+
+
+def _replicated_views(scene_host, dev):
+    """The replicated brute-force films of 19b-c's views (``render`` with
+    no accel) and the gradients of their sum with respect to all five
+    leaves."""
+    import torch
+
+    from atray_tpu_torch.render.rng import prng_key
+    from atray_tpu_torch.render.wavefront import render
+    from atray_tpu_torch.scene.data import SceneParams
+
+    cams, settings = _treelet_views()
+    scene = scene_host.to(dev)
+    p = SceneParams(*(x.clone().requires_grad_() for x in scene.params().leaves()))
+    sc = scene.with_params(p)
+    films = [render(sc, cam, settings, prng_key(v), device=dev) for v, cam in enumerate(cams)]
+    g = _leaf_grads(sum(f.sum() for f in films), list(p.leaves()))
+    return (torch.stack([f.detach() for f in films]).cpu().numpy(),
+            [x.cpu().numpy() for x in g])
+
+
+def _film_ties(label, got, want, gpu):
+    import numpy as np
+
+    diff = np.abs(got - want).max(axis=-1)
+    share = float((diff > 1e-5).mean())
+    print(f"phase {label} the films of the 16 views against the replicated brute-force "
+          f"render's: max |diff| {float(diff.max()):.3g}, {share:.6f} of pixels differ by more "
+          f"than 1e-5 (limit {TIE_PIXELS}: an equal-t tie) [{gpu}]")
+    if share > TIE_PIXELS:
+        raise AssertionError(f"{label}: {share} of the films' pixels differ")
+
+
+def phase_example_torchrun(gpu):
+    """19d: ``examples/inverse_render.py``'s port under ``torchrun
+    --standalone --nproc-per-node 2`` on the one card (gloo): its step
+    lines, its last loss below its first, its Mray-steps/s line."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+         str(RANKS), "-m", "atray_tpu_torch.examples.inverse_render", "--dist-backend", "gloo"]
+        + EXAMPLE_ARGS, cwd=ROOT, capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S)
+    sec = time.perf_counter() - t0
+    lines = run.stdout.splitlines()
+    steps = [x for x in lines if x.startswith("step")]
+    if run.returncode != 0 or len(steps) < 2:
+        raise AssertionError(f"19d: torchrun exited {run.returncode}: {run.stdout[-2000:]} "
+                             f"{run.stderr[-3000:]}")
+    first, last = (float(x.split("loss")[1].split()[0]) for x in (steps[0], steps[-1]))
+    for x in lines:
+        print(f"phase 19d torchrun | {x}")
+    print(f"phase 19d torchrun --standalone --nproc-per-node {RANKS} -m "
+          f"atray_tpu_torch.examples.inverse_render --dist-backend gloo {' '.join(EXAMPLE_ARGS)}: "
+          f"exit 0 in {sec:.2f} s, loss {first:.4g} -> {last:.4g} [{gpu}]")
+    if not last < first:
+        raise AssertionError(f"19d: the example's loss did not fall: {steps}")
+    return {"s": sec, "first": first, "last": last}
+
+
+def phase_nccl_train_step(dev, gpu):
+    """19e (the parent): in a one-rank NCCL group, one ``make_train_step``
+    step with ``mesh=`` (its gradients through NCCL's ``all_reduce``) equal
+    to the step without a mesh bit for bit, on phase 9's rays."""
+    import torch
+    import torch.distributed as dist
+
+    from atray_tpu_torch.accel.wide import make_accel
+    from atray_tpu_torch.config import KDTreeConfig
+    from atray_tpu_torch.dist.mesh import make_device_mesh
+    from atray_tpu_torch.dist.multihost import init_distributed
+    from atray_tpu_torch.render.rng import fold_in, prng_key
+
+    scene_host = _trainer_scene()
+    wide_host = make_accel(scene_host.mesh.vertices, scene_host.mesh.faces,
+                           KDTreeConfig(leaf_size=16))
+    orig, dirn = _trainer_rays(dev)
+    init_distributed(f"tcp://127.0.0.1:{_free_port()}", 1, 0, device=dev)
+    try:
+        backend = dist.get_backend()
+        mesh = make_device_mesh(1, device=dev)
+        out = []
+        # the gradient's index_add_ (index_select's backward) sums in the
+        # order of its atomics unless PyTorch is asked for its
+        # deterministic algorithms: then two steps on the same inputs agree
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for m in (None, mesh):
+                _, _, p, target, steps = _trainer(scene_host, {"make_accel": wide_host}, orig,
+                                                  dirn, dev, m)
+                loss = steps["make_accel"](p, orig, dirn, target, fold_in(prng_key(0), 0))
+                out.append((float(loss), p))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (l0, p0), (l1, p1) = out
+        same = l0 == l1 and all(torch.equal(a, b) for a, b in zip(p0.leaves(), p1.leaves()))
+        if backend != "nccl" or not same:
+            raise AssertionError(f"19e: backend {backend}; the one-rank mesh step differs from "
+                                 "the step without a mesh")
+        print(f"phase 19e one-rank {backend} group on {dev}: one make_train_step(mesh=) step on "
+              f"{orig.shape[0]} rays (gradients through NCCL's all_reduce) == the step without a "
+              f"mesh bit for bit (loss {l1:.6g}, albedo and vertices) [{gpu}]")
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(phase, tmp, timeout):
+    """``chip_smoke.py --rank R --world RANKS --port P --out tmp --phase
+    phase`` for each rank; their ``phase`` lines printed; returns each
+    rank's json and the seconds."""
+    port = _free_port()
+    logs = [os.path.join(tmp, f"rank{r}_{phase}.log") for r in range(RANKS)]
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(RANKS):
+        with open(logs[r], "w") as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", str(r), "--world",
+                 str(RANKS), "--port", str(port), "--out", tmp, "--phase", phase],
+                cwd=ROOT, stdout=fh, stderr=subprocess.STDOUT))
+    _wait_ranks(procs, logs, timeout)
+    sec = time.perf_counter() - t0
+    for r in range(RANKS):
+        for line in open(logs[r]).read().splitlines():
+            if line.startswith("phase "):
+                print(line)
+    res = []
+    for r in range(RANKS):
+        with open(os.path.join(tmp, f"rank{r}_{phase}.json")) as fh:
+            res.append(json.load(fh))
+    return res, sec
+
+
+def phase_sharded_training(dev, gpu):
+    """Phase 19; returns each rank's numbers."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from atray_tpu_torch.dist.train import make_loss_and_grad
+    from atray_tpu_torch.render.rng import fold_in, prng_key
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        res, ranks_s = _spawn_ranks("19", tmp, RANK_TIMEOUT_S)
+        if any(x["19a"]["digests"] != res[0]["19a"]["digests"] for x in res):
+            raise AssertionError("19a: the ranks' parameters differ after a step")
+        print(f"phase 19 ranks: {RANKS} processes on one card over gloo in {ranks_s:.2f} s; the "
+              f"parameters equal bit for bit on every rank after each of the 6 steps [{gpu}]")
+        # 19a: step 1 on one rank, at the same rays, target and parameters
+        from atray_tpu_torch.accel.wide import make_accel
+        from atray_tpu_torch.config import KDTreeConfig
+
+        scene_host = _trainer_scene()
+        wide_host = make_accel(scene_host.mesh.vertices, scene_host.mesh.faces,
+                               KDTreeConfig(leaf_size=16))
+        orig, dirn = _trainer_rays(dev, SHARD_TRAIN_RES)
+        _, _, p, target, _ = _trainer(scene_host, {"make_accel": wide_host}, orig, dirn, dev)
+        t0 = time.perf_counter()
+        loss1, g1 = make_loss_and_grad(scene_host, 2, accel=wide_host, refit=True, device=dev)(
+            p, orig, dirn, target, fold_in(prng_key(0), 0))
+        one_s = time.perf_counter() - t0
+        z = np.load(os.path.join(tmp, "19a_step1.npz"))
+        if abs(float(z["loss"]) - float(loss1)) > 1e-5 * abs(float(loss1)):
+            raise AssertionError(f"19a: sharded loss {float(z['loss'])} != one rank's "
+                                 f"{float(loss1)}")
+        worst = _hold_grads("19a step 1", ("albedo", "vertices"), (z["albedo"], z["vertices"]),
+                            (g1.albedo.cpu().numpy(), g1.vertices.cpu().numpy()))
+        print(f"phase 19a step 1 on 2 ranks against one rank's make_loss_and_grad ({one_s:.4f} s "
+              f"with the refit, first call): loss {float(z['loss']):.8g} vs {float(loss1):.8g}; "
+              f"max |diff| / max |g|: {worst} [{gpu}]")
+        del p, target, orig, dirn, g1
+        # 19b-c: the replicated brute-force films and gradients
+        t0 = time.perf_counter()
+        films, grads = _replicated_views(scene_host, dev)
+        rep_s = time.perf_counter() - t0
+        names = ("vertices", "normals", "emission", "albedo", "scatter")
+        for label, keep in (("19b", 5), ("19c", 2)):
+            z = np.load(os.path.join(tmp, f"{label}.npz"))
+            _film_ties(label, z["films"], films, gpu)
+            worst = _hold_grads(label, names[:keep], [z[f"g{i}"] for i in range(keep)],
+                                grads[:keep])
+            print(f"phase {label} gradients against the replicated brute-force render's "
+                  f"({rep_s:.4f} s, one rank){' after merge_*_grads' if keep == 2 else ''}: max "
+                  f"|diff| / max |g|: {worst} [{gpu}]")
+        print(f"phase 19a-c ranks and references: {time.perf_counter() - t_phase:.1f} s")
+    example = phase_example_torchrun(gpu)
+    phase_nccl_train_step(dev, gpu)
+    print(f"phase 19 sharded training path: {time.perf_counter() - t_phase:.1f} s")
+    return res, example
+
+
 def _entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms, **rays):
     """One entry of the ``kernels`` line; the lineage walks add ``rays``
     (the rays of ``ms`` and ``bound_ms``) and ``plain_rays`` (of
@@ -4243,6 +4797,8 @@ def main() -> int:
     # rank 1 traces the frame's lower half (the floor and most of the
     # dragon); rank 0's camera bounce is sky, its first pack empty
     sa, sb = sharded[1]["18a"], sharded[1]["18b"]
+    training, _ = phase_sharded_training(dev, gpu)
+    ta, tb, tc = (training[1][k] for k in ("19a", "19b", "19c"))
 
     lt_ms, lt_plain, lt_lib = lt[(14, 4_147_200, "pack")]
     n_chunk = 4_147_200
@@ -4274,6 +4830,11 @@ def main() -> int:
                "atray_tpu/kernels/wide_shade.py:43", sb["launches"], sb["wide_shade"]["err"],
                sb["wide_shade"]["ms"], sb["wide_shade"]["plain_ms"], sb["wide_shade"]["bound"],
                None, rays=sb["wide_shade"]["rays"], live_rays=sb["wide_shade"]["live_rays"]),
+        _entry("wide_shade (sharded trainer, shaded accel, rank 1 of 2)",
+               "atray_tpu_torch/csrc/wide_shade.cu", "atray_tpu/kernels/wide_shade.py:43",
+               ta["launches"]["wide_shade"], ta["wide_shade"]["err"], ta["wide_shade"]["ms"],
+               ta["wide_shade"]["plain_ms"], ta["wide_shade"]["bound"], None,
+               rays=ta["wide_shade"]["rays"], live_rays=ta["wide_shade"]["live_rays"]),
         _entry("lane_take", "atray_tpu_torch/csrc/lane_take.cu",
                "atray_tpu/kernels/lane_pack.py:202", counts["lane_take"][0], 0.0,
                lt_ms, lt_plain, _bound((2 * 14 + 1) * 4 * n_chunk), lt_lib),
@@ -4285,13 +4846,36 @@ def main() -> int:
                "atray_tpu/kernels/lane_pack.py:202", sa["launches"]["lane_take"], 0.0,
                sa["lane_take"]["ms"], sa["lane_take"]["plain_ms"], sa["lane_take"]["bound"],
                sa["lane_take"]["library_ms"], rays=sa["lane_take"]["rays"]),
+        _entry("lane_take (TreeletParts gradient, rank 1 of 2)", "atray_tpu_torch/csrc/lane_take.cu",
+               "atray_tpu/kernels/lane_pack.py:202", tb["launches"]["lane_take"], 0.0,
+               tb["lane_take"]["ms"], tb["lane_take"]["plain_ms"], tb["lane_take"]["bound"],
+               tb["lane_take"]["library_ms"], rays=tb["lane_take"]["rays"]),
+        _entry("lane_take (TreeletShards gradient, rank 1 of 2)", "atray_tpu_torch/csrc/lane_take.cu",
+               "atray_tpu/kernels/lane_pack.py:202", tc["launches"]["lane_take"], 0.0,
+               tc["lane_take"]["ms"], tc["lane_take"]["plain_ms"], tc["lane_take"]["bound"],
+               tc["lane_take"]["library_ms"], rays=tc["lane_take"]["rays"]),
         _entry("lane_scatter", "atray_tpu_torch/csrc/lane_scatter.cu",
                "atray_tpu/kernels/lane_pack.py:632", g_counts["lane_scatter"][0], ls_err,
                ls_ms, ls_plain, ls_bound, ls_lib),
+        _entry("lane_scatter (TreeletParts gradient, rank 1 of 2)", "atray_tpu_torch/csrc/lane_scatter.cu",
+               "atray_tpu/kernels/lane_pack.py:632", tb["launches"]["lane_scatter"],
+               tb["lane_scatter"]["err"], tb["lane_scatter"]["ms"],
+               tb["lane_scatter"]["plain_ms"], tb["lane_scatter"]["bound"],
+               tb["lane_scatter"]["library_ms"], rays=tb["lane_scatter"]["rays"]),
+        _entry("lane_scatter (TreeletShards gradient, rank 1 of 2)", "atray_tpu_torch/csrc/lane_scatter.cu",
+               "atray_tpu/kernels/lane_pack.py:632", tc["launches"]["lane_scatter"],
+               tc["lane_scatter"]["err"], tc["lane_scatter"]["ms"],
+               tc["lane_scatter"]["plain_ms"], tc["lane_scatter"]["bound"],
+               tc["lane_scatter"]["library_ms"], rays=tc["lane_scatter"]["rays"]),
         _entry("wide_exact", "atray_tpu_torch/csrc/wide_exact.cu",
                "atray_tpu/kernels/wide_exact.py:46", t_counts["wide_exact"][0],
                max(we_err, t_err, lineage["wide_exact_err"]),
                we_ms, we_plain, we_bound, None),
+        _entry("wide_exact (sharded trainer, make_accel, rank 1 of 2)",
+               "atray_tpu_torch/csrc/wide_exact.cu", "atray_tpu/kernels/wide_exact.py:46",
+               ta["launches"]["wide_exact"], ta["wide_exact"]["err"], ta["wide_exact"]["ms"],
+               ta["wide_exact"]["plain_ms"], ta["wide_exact"]["bound"], None,
+               rays=ta["wide_exact"]["rays"]),
         _entry("treelet_phase_a", "atray_tpu_torch/csrc/treelet_phase_a.cu",
                "atray_tpu/kernels/treelet_pairs.py:69", p_counts["treelet_phase_a"][0], 0.0,
                *pk["a"], None),

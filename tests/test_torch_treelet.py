@@ -1,5 +1,6 @@
 """PyTorch port: the geometry-sharded treelet render (``dist/treelet.py``'s
-forward backends, ``trace_radiance``'s overrides, ``wide_shade_first_hit``,
+forward backends and one rank of its differentiable one, ``trace_radiance``'s
+overrides, ``wide_shade_first_hit``,
 the command line's ``--treelet``): twins of ``tests/test_treelet.py``.
 
 As in ``tests/test_torch_dist.py`` (whose ``spawn_ranks`` it uses), one
@@ -24,10 +25,15 @@ from atray_tpu_torch import cli  # noqa: E402
 from atray_tpu_torch.accel.shaded import build_shaded_accel  # noqa: E402
 from atray_tpu_torch.config import KDTreeConfig, RenderSettings  # noqa: E402
 from atray_tpu_torch.core.camera import camera_rays, look_at_camera  # noqa: E402
-from atray_tpu_torch.core.intersect import first_triangle_hit  # noqa: E402
+from atray_tpu_torch.core.intersect import (  # noqa: E402
+    first_triangle_hit,
+    moller_trumbore,
+    normalize,
+)
 from atray_tpu_torch.dist.mesh import make_device_mesh  # noqa: E402
 from atray_tpu_torch.dist.treelet import (  # noqa: E402
     build_treelet_accels,
+    build_treelet_parts,
     build_treelets,
     partition_faces,
     render_treelet,
@@ -40,8 +46,13 @@ from atray_tpu_torch.kernels import _build  # noqa: E402
 from atray_tpu_torch.kernels.wide_shade import wide_shade_first_hit, wide_shade_planes  # noqa: E402
 from atray_tpu_torch.render.film import save_png  # noqa: E402
 from atray_tpu_torch.render.rng import prng_key  # noqa: E402
-from atray_tpu_torch.render.wavefront import render, resolve_material_rows, trace_radiance  # noqa: E402
-from atray_tpu_torch.scene.data import empty_mesh  # noqa: E402
+from atray_tpu_torch.render.wavefront import (  # noqa: E402
+    build_face_table,
+    render,
+    resolve_material_rows,
+    trace_radiance,
+)
+from atray_tpu_torch.scene.data import SceneParams, empty_mesh  # noqa: E402
 
 WORLD = 3
 EYE, TARGET = (0.0, 0.4, 0.6), (0.0, 0.0, -4.0)
@@ -329,15 +340,44 @@ def test_cli_treelet_renders(ranks):
         assert ("bvh_build" in err) == (name == "accels")
 
 
-def test_differentiable_backends_raise(jax_scenes):
-    # TreeletParts (and TreeletShards) are the training half, the next item
-    from atray_tpu.dist.treelet import build_treelet_parts
-
+def test_treelet_parts_one_rank_equals_render(jax_scenes):
+    # the differentiable backend on one rank (both rings of one hop, sort
+    # and lane pack on) against the replicated brute-force render: the film
+    # and the gradients of all five leaves; the backward runs pickup hops
+    # only, in reverse
+    scene = scene_from_numpy(_tree_of(jax_scenes["nee"])).to("cpu")
     cam = look_at_camera(EYE, TARGET, h_fov=0.9, aspect=1.0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3b"):
-        render_treelet(scene_from_numpy(_tree_of(jax_scenes["geom"])), cam, FILM, prng_key(0),
-                       make_device_mesh(device="cpu"),
-                       treelets=build_treelet_parts(jax_scenes["geom"], 1))
+    s = RenderSettings(resolution=(12, 12), samples_per_pixel=1, bounce_limit=3)
+    mesh = make_device_mesh(device="cpu")
+    parts = build_treelet_parts(scene, 1)
+    hops = []
+
+    def film_and_grads(fn):
+        p = SceneParams(*(x.clone().requires_grad_() for x in scene.params().leaves()))
+        film = fn(scene.with_params(p))
+        g = torch.autograd.grad(film.sum(), p.leaves(), allow_unused=True)
+        return film.detach(), [torch.zeros_like(x) if y is None else y
+                               for x, y in zip(p.leaves(), g)]
+
+    want, g_want = film_and_grads(lambda sc: render(sc, cam, s, prng_key(3), device="cpu"))
+    n_fwd = []
+
+    def treelet(sc):
+        film = render_treelet(sc, cam, s, prng_key(3), mesh, treelets=parts, hop_log=hops)
+        n_fwd.append(len(hops))
+        return film
+
+    got, g_got = film_and_grads(treelet)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+    assert want.std() > 0.01
+    for a, b in zip(g_got, g_want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=1e-3)
+    assert float(g_want[0].abs().max()) > 1e-3
+    fwd, bwd = hops[:n_fwd[0]], hops[n_fwd[0]:]
+    assert [h["ring"] for h in fwd] == ["first_fid", "pickup"] * s.bounce_limit
+    assert bwd and all(h["ring"] == "pickup" and h["reverse"] for h in bwd)
+    assert not any(h["reverse"] for h in fwd)
+    assert {h["bytes"] for h in bwd} == {20 * 4 * 144}
 
 
 def _tree_of(jscene):
@@ -379,3 +419,73 @@ def test_overrides_and_first_hit_adapter(jax_scenes):
         np.testing.assert_allclose(got.numpy(), base.numpy(), atol=1e-5)
     with pytest.raises(NotImplementedError, match="occl_override"):
         trace_radiance(lean, o, d, 2, prng_key(4), nee=True, hit_override=ids_form)
+
+
+def test_override_replay_passes_ray_gradient(jax_scenes):
+    # an override that replays each ray's hit from its face id (found by
+    # brute force, detached) on the rays it is handed, as the differentiable
+    # treelet backends do: from the second bounce on the ray origins depend
+    # on the vertices, and the vertex gradient through trace_radiance equals
+    # the reference's jax.grad through the same override (with the rays
+    # detached before the override, as they were, it misses that term)
+    import jax
+    import jax.numpy as jnp
+
+    from atray_tpu.core import intersect as jx
+    from atray_tpu.render import wavefront as jw
+    from atray_tpu.scene.data import empty_mesh as jax_empty_mesh
+
+    from atray_tpu.scene import build_scene, procedural
+
+    # the uv sphere over a floor of two triangles: rays bounce between them
+    floor = procedural.quad((-3, -1, -1), (3, -1, -1), (3, -1, -7), (-3, -1, -7))
+    g = jax_scenes["geom"]
+    jscene = build_scene([g.mesh, floor], materials=g.materials)
+    scene = scene_from_numpy(_tree_of(jscene)).to("cpu")
+    cam = look_at_camera(EYE, TARGET, h_fov=0.9, aspect=1.0)
+    o, d = camera_rays(cam, 10, 10, 1, device="cpu")
+
+    def replay(xp, mt, norm, o_, d_, row, j, mat):
+        # t and the normal from the row on the rays handed in (both sides)
+        tt, u, v, _ = mt(o_, d_, row[:, 0:3], row[:, 3:6], row[:, 6:9])
+        w0 = (1.0 - u - v)[:, None]
+        n = norm(w0 * row[:, 9:12] + u[:, None] * row[:, 12:15] + v[:, None] * row[:, 15:18])
+        hit = (j >= 0) & (tt < 1.0e30)
+        return xp.where(hit, tt, 1.0e30), xp.where(hit[:, None], n, 0.0), xp.where(hit, mat, 0), hit
+
+    v = scene.mesh.vertices.clone().requires_grad_()
+    sc = scene.with_params(dataclasses.replace(scene.params(), vertices=v))
+    ft = build_face_table(sc)
+    soa = [x.detach() for x in sc.triangle_soa()]
+
+    def port_override(o_, d_, alive):
+        j = first_triangle_hit(o_.detach(), d_.detach(), *soa)[3]
+        row = torch.index_select(ft, 0, torch.clamp(j, min=0).long())
+        return replay(torch, moller_trumbore, normalize, o_, d_, row, j,
+                      row[:, 18].detach().to(torch.int32))
+
+    lean = dataclasses.replace(sc, mesh=empty_mesh()).to("cpu")
+    color = trace_radiance(lean, o, d, 3, prng_key(6), hit_override=port_override)
+    got = torch.autograd.grad(color.sum(), v)[0].numpy()
+
+    jo, jd = jnp.asarray(o.numpy()), jnp.asarray(d.numpy())
+    jlean = dataclasses.replace(jscene, mesh=jax_empty_mesh())
+
+    def loss(verts):
+        js = dataclasses.replace(jscene, mesh=dataclasses.replace(jscene.mesh, vertices=verts))
+        jft = jw.build_face_table(js)
+        p0, e1, e2 = (jax.lax.stop_gradient(jft[:, k:k + 3]) for k in (0, 3, 6))
+
+        def override(o_, d_, alive):
+            j = jx.first_triangle_hit(jax.lax.stop_gradient(o_), jax.lax.stop_gradient(d_),
+                                      p0, e1, e2)[3]
+            row = jft[jnp.maximum(j, 0)]
+            return replay(jnp, jx.moller_trumbore, jx.normalize, o_, d_, row, j,
+                          jax.lax.stop_gradient(row[:, 18]).astype(jnp.int32))
+
+        return jnp.sum(jw.trace_radiance(jlean, jo, jd, 3, key=jax.random.PRNGKey(6),
+                                         hit_override=override))
+
+    want = np.asarray(jax.jit(jax.grad(loss))(jnp.asarray(jscene.mesh.vertices)))
+    assert np.abs(want).max() > 1e-3
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-3)
